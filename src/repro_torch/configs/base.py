@@ -1,0 +1,51 @@
+"""Model configuration dataclass (the port's own copy of
+``repro.configs.base.ModelConfig``, restricted to what the port runs).
+
+One ``ModelConfig`` per architecture lives in
+``repro_torch/configs/<arch_id>.py``; each exposes ``config()`` (full
+size) and ``smoke_config()`` (reduced: 2 layers, narrow widths, runnable
+on a CPU). The port runs the dense decoder family only, so the reference's
+MoE, RWKV, hybrid, prefix-embedding and remat fields are absent.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: str  # dense (the one family the port runs)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None  # default d_model // n_heads
+    # attention details
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: Optional[int] = None  # set -> sliding-window attention
+    # norms
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    # numerics
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    vocab_pad_multiple: int = 256
+    source: str = ""  # citation
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,56 @@
+"""Carry parameters and memory between the reference and the port.
+
+Both packages keep the same tree and the same tensor layouts (dense
+weights (d_in, d_out), a leading L axis on stacked block leaves), so a
+conversion is a leafwise copy through numpy:
+
+    params = params_from_jax(jax.tree.map(np.asarray, ref_params), device)
+
+The reference holds the bucket memory per worker as (W, rows, cols); the
+port holds one worker's (rows, cols).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.utils.tree import tree_map
+
+
+def _to_torch(a, device) -> torch.Tensor:
+    a = np.array(a)  # a writable copy: the reference's arrays are read-only
+    if a.dtype.name == "bfloat16":  # torch.from_numpy has no bf16: the bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_jax(tree_of_numpy, device="cpu"):
+    """The reference's params (a nested dict of numpy arrays, e.g. from
+    ``model.init(PRNGKey(0))``) as the port's params on ``device``."""
+    return tree_map(lambda a: _to_torch(a, device), tree_of_numpy)
+
+
+def params_to_jax(params):
+    """The port's params as a nested dict of numpy arrays, for the
+    reference."""
+    return tree_map(_to_numpy, params)
+
+
+def memory_from_jax(bufs, device="cpu"):
+    """Reference bucket memory (W, rows, cols) -> worker 0's (rows, cols)."""
+    return tuple(_to_torch(np.asarray(b)[0], device) for b in bufs)
+
+
+def memory_to_jax(bufs):
+    """Port bucket memory (rows, cols) -> the reference's (1, rows, cols)."""
+    return tuple(_to_numpy(b)[None] for b in bufs)

@@ -1,0 +1,5 @@
+"""Data of the port: synthetic token streams and their pipeline."""
+from repro_torch.data.pipeline import DeviceBatcher, InfiniteStream, take
+from repro_torch.data.synthetic import token_batches
+
+__all__ = ["token_batches", "InfiniteStream", "DeviceBatcher", "take"]

@@ -1,0 +1,79 @@
+"""Input pipeline: bounded consumption and device placement (port of
+``repro.data.pipeline``; ``DeviceBatcher`` takes the place of the mesh's
+``ShardedBatcher`` on one device)."""
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+
+
+class InfiniteStream:
+    """Wrapper marking an iterator as EXPLICITLY unbounded.
+
+    ``len(stream)`` raises ``TypeError``, and ``list(stream)`` raises
+    ``RuntimeError`` up front instead of looping forever (CPython swallows
+    ``TypeError`` from ``__length_hint__``, so the hint raises another
+    type). Bound a stream with ``take(it, n)``.
+    """
+
+    def __init__(self, it: Iterator):
+        self._it = iter(it)
+
+    def __iter__(self) -> "InfiniteStream":
+        return self
+
+    def __next__(self):
+        return next(self._it)
+
+    def __len__(self) -> int:
+        raise TypeError(
+            "infinite stream: len() is undefined — bound it with "
+            "repro_torch.data.take(it, n)"
+        )
+
+    def __bool__(self) -> bool:
+        # without this, bool() falls back to the raising __len__
+        return True
+
+    def __length_hint__(self) -> int:
+        raise RuntimeError(
+            "infinite stream: list()/tuple() would never terminate — "
+            "bound it with repro_torch.data.take(it, n)"
+        )
+
+
+class DeviceBatcher:
+    """Moves each host (numpy) batch onto ``device`` as tensors.
+
+    On CUDA the copy goes through pinned memory without blocking the
+    host: a pageable copy would wait for every step already issued, and
+    the driver's one-step-late loss drain relies on the host running
+    ahead. (PyTorch's pinned-memory pool keeps the staging buffer until
+    the copy has run.)"""
+
+    def __init__(self, it: Iterator[dict], device):
+        self._it = it
+        self.device = torch.device(device)
+
+    def _put(self, v) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def __iter__(self):
+        for batch in self._it:
+            yield {k: self._put(v) for k, v in batch.items()}
+
+
+def take(it: Iterator, n: int):
+    """Yield the first ``n`` items, then stop — consuming EXACTLY ``n``
+    from the underlying iterator."""
+    it = iter(it)
+    for _ in range(n):
+        try:
+            yield next(it)
+        except StopIteration:
+            return

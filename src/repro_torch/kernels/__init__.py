@@ -1,0 +1,22 @@
+"""Hand-written Hopper kernels of the port and their plain versions.
+
+* ``fused_memsgd`` — ctypes wrapper of ``csrc/fused_memsgd.cu`` (fused
+  memory update + per-row top-k), with its launch count.
+* ``ops``          — public entry points (``fused_memsgd_update``).
+* ``ref``          — plain PyTorch versions (the CPU path, and what the
+  kernels are held against on the card).
+* ``_build``       — nvcc build at first use, loaded through ctypes.
+"""
+from repro_torch.kernels.ops import (
+    fused_memsgd_ref,
+    fused_memsgd_update,
+    row_topk_ref,
+)
+from repro_torch.kernels.ref import densify_rows_ref
+
+__all__ = [
+    "fused_memsgd_update",
+    "row_topk_ref",
+    "fused_memsgd_ref",
+    "densify_rows_ref",
+]

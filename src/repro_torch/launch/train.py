@@ -1,0 +1,225 @@
+"""Train step + driver for PARALLEL-MEM-SGD on one device (port of
+``repro.launch.train`` for the bucketed path).
+
+``make_train_step`` builds the step
+
+    (params, memory, opt, count, batch) -> (params, memory, opt, count, metrics)
+
+Each step computes the gradient with autograd, runs the bucketed sync
+(``repro_torch.core.distributed.bucketed_sync_gradients``: one fused CUDA
+kernel launch per sparse bucket forms u = m + eta*g, selects the per-row
+top-k and leaves the residual as the new memory), and subtracts the
+synced update from the parameters. As the reference donates its step
+inputs, the port updates ``params`` IN PLACE and returns them; the old
+memory buffers are replaced by the kernel's output. ``count`` is a host
+integer, so the eta schedule never waits on the device.
+
+Optimizer modes:
+  * ``memsgd`` — paper Algorithm 1/2: update = comp_k(m + eta*g),
+    params -= update. eta consumed at memory insertion.
+  * ``dense``  — uncompressed baseline (the sync's dense strategy).
+The reference's ``memsgd_momentum`` and ``adam_compressed`` are not
+ported and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import buckets as bk
+from repro_torch.core.distributed import (
+    SyncConfig,
+    bucketed_message_bytes,
+    bucketed_sync_gradients,
+)
+from repro_torch.data.pipeline import take
+from repro_torch.kernels.ref import eta32
+from repro_torch.utils.platform import resolve_device
+from repro_torch.utils.telemetry import NonFiniteLossError, Telemetry
+from repro_torch.utils.tree import tree_flatten
+
+OPTIMIZERS = ("memsgd", "dense")
+UNPORTED_OPTIMIZERS = ("memsgd_momentum", "adam_compressed")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "memsgd"  # memsgd | dense
+    eta: float = 0.1  # base stepsize
+    eta_shift: float = 0.0  # a>0 enables eta_t = eta*a/(a + t) decay
+    sync: SyncConfig = dataclasses.field(default_factory=SyncConfig)
+
+
+def _eta_schedule(tc: TrainConfig):
+    """Host schedule t -> eta_t, rounded in float32 as the reference's
+    traced schedule is."""
+    if tc.eta_shift > 0:
+        a = tc.eta_shift
+        return lambda t: float(
+            np.float32(tc.eta * a) / (np.float32(a) + np.float32(t)))
+    eta = eta32(tc.eta)
+    return lambda t: eta
+
+
+def _sync_config(tc: TrainConfig) -> SyncConfig:
+    if tc.optimizer in UNPORTED_OPTIMIZERS:
+        raise NotImplementedError(
+            f"optimizer {tc.optimizer!r} is not ported yet; options: "
+            f"{OPTIMIZERS}")
+    if tc.optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {tc.optimizer!r}")
+    strategy = "dense" if tc.optimizer == "dense" else tc.sync.strategy
+    return dataclasses.replace(tc.sync, strategy=strategy).validate()
+
+
+def _bucket_plan(sync: SyncConfig, pshapes) -> bk.BucketPlan:
+    return bk.make_plan(pshapes, cols=sync.bucket_cols,
+                        dense_below=sync.dense_below)
+
+
+def init_train_state(model, tc: TrainConfig, *, device="cuda", seed: int = 0,
+                     params=None):
+    """Returns (params, memory, opt, count): the port's seeded init on
+    ``device`` (or the given ``params``), zero float32 bucket memory (one
+    (rows, cols) buffer per bucket), no optimizer state, count 0."""
+    device = resolve_device(device)
+    plan = _bucket_plan(_sync_config(tc), model.param_shapes())
+    if params is None:
+        params = model.init(seed=seed, device=device)
+    memory = bk.init_bucket_memory(plan, device=device)
+    return params, memory, (), 0
+
+
+def make_train_step(model, tc: TrainConfig):
+    """Builds the train step (see the module docstring). It runs on the
+    device its inputs lie on; ``step.sync`` and ``step.plan`` are the
+    validated sync config and the bucket plan it runs with."""
+    sync = _sync_config(tc)
+    plan = _bucket_plan(sync, model.param_shapes())
+    eta_fn = _eta_schedule(tc)
+
+    def step(params, memory, opt, count, batch):
+        leaves, treedef = tree_flatten(params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        loss, metrics = model.loss(treedef.unflatten(live), batch)
+        grads = torch.autograd.grad(loss, live)
+        del live, loss
+        update, new_memory, _ = bucketed_sync_gradients(
+            sync, plan, memory, treedef.unflatten(grads), eta_fn(count))
+        del grads
+        with torch.no_grad():
+            for p, u in zip(leaves, plan.treedef.flatten_up_to(update)):
+                p.sub_(u.to(p.dtype))
+        out = {"loss": metrics["xent"].detach(),
+               "aux": metrics["aux"].detach()}
+        return params, new_memory, opt, count + 1, out
+
+    step.sync, step.plan = sync, plan
+    return step
+
+
+def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
+          seed: int = 0, params=None, log_every: int = 10, telemetry=None):
+    """End-to-end training loop on ``device`` (CUDA unless the caller asks
+    for the CPU). ``batches``: iterator of batches already on ``device``
+    (see ``repro_torch.data.DeviceBatcher``). Returns (params, memory,
+    opt, count, history) with history the logged (step, loss) pairs.
+
+    ``telemetry`` — a ``repro_torch.utils.telemetry.Telemetry`` sink fed
+    every step's loss; when omitted an internal sink runs, so a NaN/inf
+    loss raises ``NonFiniteLossError`` (carrying the partial ``history``)
+    instead of training on garbage. Each step's device loss is read only
+    after the NEXT step has been issued, so the host's read never waits
+    on the step it just issued."""
+    device = resolve_device(device)
+    params, memory, opt, count = init_train_state(
+        model, tc, device=device, seed=seed, params=params)
+    step = make_train_step(model, tc)
+    tel_owned = telemetry is None
+    tel = telemetry if telemetry is not None else Telemetry()
+    tel.set_bytes_per_step(
+        {"total": bucketed_message_bytes(step.sync, step.plan)})
+    history = []
+
+    # one-step-late loss readback: float(loss) blocks until the step that
+    # produced it has run, so it is drained only after the next step is
+    # issued (detection and printing lag one step)
+    pending = None
+
+    def _drain(rec):
+        idx, dev_loss, log_rec = rec
+        loss = float(dev_loss)
+        try:
+            tel.step(idx, loss, log=log_rec)
+        except NonFiniteLossError as e:
+            e.history = list(history)
+            if tel_owned:
+                tel.close()
+            raise
+        if log_rec:
+            history.append((idx, loss))
+
+    for i, batch in enumerate(take(batches, n_steps)):
+        params, memory, opt, count, metrics = step(params, memory, opt,
+                                                   count, batch)
+        do_log = bool(log_every and (i % log_every == 0 or i == n_steps - 1))
+        if pending is not None:
+            _drain(pending)
+        pending = (i, metrics["loss"], do_log)
+        if tel.should_stop:
+            print(f"telemetry early stop @ step {i}: {tel.stop_reason}")
+            break
+    if pending is not None:
+        _drain(pending)  # the last issued step's loss
+    if tel_owned:
+        tel.close()
+    return params, memory, opt, count, history
+
+
+def main(argv=None):
+    """CLI: train an architecture's SMOKE variant end to end.
+
+        python -m repro_torch.launch.train --bucketed [--platform cpu]
+    """
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.data import DeviceBatcher, token_batches
+    from repro_torch.models import build_model
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-4b", choices=ARCH_IDS)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--optimizer", default="memsgd")
+    ap.add_argument("--eta", type=float, default=0.5)
+    ap.add_argument("--ratio", type=float, default=0.01)
+    ap.add_argument("--strategy", default="sparse_allgather")
+    ap.add_argument("--bucketed", action="store_true",
+                    help="flat-buffer bucketed sync (repro_torch.core."
+                         "buckets); the per-leaf path is not ported")
+    ap.add_argument("--wire", default="unpacked",
+                    choices=("unpacked", "packed"),
+                    help="sync wire format ('packed' is not ported)")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--platform", default="cuda", choices=("cuda", "cpu"),
+                    help="device to train on; 'cpu' runs every kernel's "
+                         "plain version")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.platform)
+    cfg = get_smoke_config(args.arch)
+    model = build_model(cfg)
+    tc = TrainConfig(
+        optimizer=args.optimizer, eta=args.eta,
+        sync=SyncConfig(ratio=args.ratio, strategy=args.strategy,
+                        bucketed=args.bucketed, wire=args.wire),
+    )
+    batches = DeviceBatcher(
+        token_batches(cfg.vocab_size, args.batch, args.seq, seed=0), device)
+    return train(model, tc, batches, n_steps=args.steps, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,4 @@
+"""Model zoo of the port (dense decoder family)."""
+from repro_torch.models.model import Model, build_model
+
+__all__ = ["Model", "build_model"]

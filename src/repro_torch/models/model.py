@@ -1,0 +1,87 @@
+"""Model bundle: init, forward, loss (port of ``repro.models.model`` for
+the dense family).
+
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    loss, metrics = model.loss(params, batch)
+    shapes = model.param_shapes()          # meta tensors, no storage
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+from repro_torch.utils.platform import resolve_device
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+
+def _xent(cfg, logits: torch.Tensor, labels: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked cross-entropy. labels < 0 are ignored (prefix/pad positions).
+
+    Padded-vocab logits are excluded from the partition function; the
+    log-sum-exp runs in float32."""
+    V = cfg.vocab_size
+    Vp = logits.shape[-1]
+    if Vp > V:
+        pad_mask = torch.arange(Vp, device=logits.device) < V
+        logits = torch.where(pad_mask, logits, -1e30)
+    lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
+    labels = labels.to(torch.int64)
+    safe_labels = torch.clamp(labels, min=0)
+    ll = torch.gather(logits, -1, safe_labels[..., None])[..., 0]
+    per_tok = lse - ll.to(torch.float32)
+    mask = (labels >= 0).to(torch.float32)
+    n = torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(per_tok * mask) / n, n
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def _cast(self, params):
+        """Float params in the compute dtype (the float32 masters stay with
+        the optimizer; the forward runs in ``cfg.compute_dtype``)."""
+        dt = getattr(torch, self.cfg.compute_dtype)
+        return tree_map(lambda p: p.to(dt) if p.is_floating_point() else p,
+                        params)
+
+    # -- parameters ---------------------------------------------------------
+
+    def init(self, seed: int = 0, device="cuda") -> dict:
+        """The port's own seeded init (``torch.Generator`` on ``device``;
+        CUDA unless the caller asks for the CPU)."""
+        device = resolve_device(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return transformer.init_params(self.cfg, device=device, generator=gen)
+
+    def param_shapes(self) -> dict:
+        """Parameter tree on the ``meta`` device: shapes and dtypes only."""
+        return transformer.init_params(self.cfg, device="meta")
+
+    # -- training path --------------------------------------------------------
+
+    def forward(self, params, batch, window: Optional[int] = None):
+        return transformer.forward(self._cast(params), self.cfg,
+                                   batch["tokens"], window=window)
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
+        logits, aux = self.forward(params, batch)
+        xent, n_tok = _xent(self.cfg, logits, batch["labels"])
+        return xent + aux, {"xent": xent, "aux": aux, "n_tokens": n_tok}
+
+    def n_params(self) -> int:
+        return sum(p.numel() for p in tree_leaves(self.param_shapes()))
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported yet (dense only)")
+    return Model(cfg)

@@ -1,0 +1,113 @@
+"""Tests of the port that need the card (marker ``cuda``).
+
+They import nothing of JAX, so they run where the card is:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Each test decides inside itself whether a CUDA device is present and
+skips where there is none.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.distributed import SyncConfig
+from repro_torch.data import token_batches
+from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
+from repro_torch.kernels.ref import fused_memsgd_ref
+from repro_torch.launch import train as train_mod
+from repro_torch.launch.train import (
+    TrainConfig,
+    init_train_state,
+    make_train_step,
+)
+from repro_torch.models import build_model
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+pytestmark = pytest.mark.cuda
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _inputs(shape, seed, kind):
+    rng = np.random.default_rng(seed)
+    m = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    if kind == "ties":
+        m, g = np.round(m * 2) / 2, np.round(g * 2) / 2
+    elif kind == "zeros":
+        m = np.zeros(shape, np.float32)
+        m[:, 5], m[:, 90] = 3.0, -1.0
+        g = np.zeros(shape, np.float32)
+    return torch.from_numpy(m).cuda(), torch.from_numpy(g).cuda()
+
+
+@pytest.mark.parametrize("shape,k,kind,eta", [
+    ((8, 1024), 10, "normal", 0.37),
+    ((16, 256), 8, "ties", 1.0),
+    ((8, 96), 8, "zeros", 0.5),
+    ((3, 33), 16, "normal", 0.0),
+    ((4, 8192), 64, "normal", 0.37),
+])
+def test_kernel_is_bitwise_equal_to_its_plain_version(shape, k, kind, eta):
+    _need_card()
+    m, g = _inputs(shape, 2, kind)
+    before = fused_memsgd_cuda.launches
+    got = fused_memsgd_cuda(m, g, eta, k)
+    assert fused_memsgd_cuda.launches == before + 1
+    want = fused_memsgd_ref(m, g, eta, k)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_kernel_rejects_bfloat16_on_the_card():
+    _need_card()
+    m = torch.zeros((8, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        fused_memsgd_cuda(m, m, 0.1, 4)
+
+
+def test_train_step_on_the_card_matches_the_cpu():
+    """One float32 smoke step from the same params and batch: loss to
+    1e-5 relative, applied update to 1e-3 relative L2."""
+    _need_card()
+    model = build_model(get_smoke_config("qwen3-4b").replace(
+        compute_dtype="float32"))
+    tc = TrainConfig(eta=0.5, sync=SyncConfig(ratio=0.01, bucketed=True))
+    batch = next(token_batches(512, 4, 64, seed=1))
+    host = model.init(seed=0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params, memory, opt, count = init_train_state(
+            model, tc, device=dev,
+            params=tree_map(lambda t: t.to(dev, copy=True), host))
+        before = [p.clone() for p in tree_leaves(params)]
+        step = make_train_step(model, tc)
+        launches = fused_memsgd_cuda.launches
+        params, memory, opt, count, met = step(
+            params, memory, opt, count,
+            {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        assert fused_memsgd_cuda.launches - launches == (dev == "cuda")
+        out[dev] = (met["loss"], torch.cat(
+            [(a - b).reshape(-1).cpu()
+             for a, b in zip(before, tree_leaves(params))]))
+    (l_cpu, u_cpu), (l_gpu, u_gpu) = out["cpu"], out["cuda"]
+    l_cpu, l_gpu = float(l_cpu), float(l_gpu)
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert float((u_gpu - u_cpu).norm() / u_cpu.norm()) < 1e-3
+
+
+def test_cli_trains_on_the_card():
+    _need_card()
+    launches = fused_memsgd_cuda.launches
+    *_, count, history = train_mod.main(
+        ["--bucketed", "--steps", "2", "--batch", "2", "--seq", "32"])
+    assert count == 2 and fused_memsgd_cuda.launches - launches == 2
+    assert all(math.isfinite(x) for _, x in history)

@@ -1,0 +1,170 @@
+"""The port's bucketed sync at one worker against the reference's
+``bucketed_sync_gradients`` inside a 1-device ``shard_map`` (the
+``tests/test_buckets.py`` pattern).
+
+Tolerances: the same (m, g) give the same selection (the update's
+support is compared exactly), and update and memory agree within 1e-6
+(the reference's FMA allowance on ``m + eta*g``). The sign of a zero may
+differ — the reference forms the memory as ``u - own``, the kernel zeroes
+the selected entries — so values are compared with ``==``-style
+tolerances, not byte views.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from repro.core import buckets as rbk
+from repro.core.distributed import SyncConfig as RefSyncConfig
+from repro.core.distributed import bucketed_message_bytes as ref_message_bytes
+from repro.core.distributed import bucketed_sync_gradients as ref_sync
+from repro.utils.compat import shard_map
+from repro_torch.convert import params_from_jax
+from repro_torch.core import buckets as bk
+from repro_torch.core import distributed as dist
+from repro_torch.core.distributed import (
+    SyncConfig,
+    bucketed_message_bytes,
+    bucketed_sync_gradients,
+)
+from repro_torch.utils.tree import tree_leaves
+
+COLS = 512
+ETA = 0.3
+
+
+def _tree_np(seed=0):
+    rng = np.random.default_rng(seed)
+
+    def f32(*s):
+        return rng.standard_normal(s).astype(np.float32)
+
+    return {"w1": f32(128, 256), "w2": f32(300, 70), "blk": {"z": f32(90, 200)},
+            "b": f32(64), "s": f32(8, 16)}
+
+
+def _ref_cfg(cfg: SyncConfig) -> RefSyncConfig:
+    return RefSyncConfig(
+        strategy=cfg.strategy, ratio=cfg.ratio, bucketed=True,
+        bucket_cols=cfg.bucket_cols, selection=cfg.selection,
+        wire=cfg.wire, value_dtype=cfg.value_dtype, _warn=False)
+
+
+def _run_both(cfg: SyncConfig, seed=0):
+    tree_np = _tree_np(seed)
+    tree = params_from_jax(tree_np)
+    plan = bk.make_plan(tree, cols=COLS)
+    ref_tree = jax.tree.map(jnp.asarray, tree_np)
+    rplan = rbk.make_plan(ref_tree, cols=COLS)
+    rng = np.random.default_rng(seed + 1)
+    mem_np = [rng.standard_normal(s.shape).astype(np.float32)
+              for s in plan.buckets]
+    upd, mem, nbytes = bucketed_sync_gradients(
+        cfg, plan, [torch.from_numpy(m) for m in mem_np], tree, ETA)
+
+    rcfg = _ref_cfg(cfg)
+
+    def body(mem, tree):
+        u, m, _ = ref_sync(rcfg, rplan, mem, tree, jnp.float32(ETA))
+        return u, m
+
+    ref_mem = tuple(jnp.asarray(m) for m in mem_np)
+    spec = lambda t: jax.tree.map(lambda _: P(), t)  # noqa: E731
+    r_upd, r_mem = jax.jit(shard_map(
+        body, mesh=jax.make_mesh((1,), ("data",)),
+        in_specs=(spec(ref_mem), spec(ref_tree)),
+        out_specs=(spec(ref_tree), spec(ref_mem)),
+    ))(ref_mem, ref_tree)
+    return (upd, mem, nbytes), (r_upd, r_mem, ref_message_bytes(rcfg, rplan))
+
+
+def _assert_agree(got, want):
+    (upd, mem, nbytes), (r_upd, r_mem, r_nbytes) = got, want
+    for a, b in zip(tree_leaves(upd), jax.tree.leaves(r_upd)):
+        a, b = a.numpy(), np.asarray(b)
+        np.testing.assert_array_equal(a != 0, b != 0)  # the same selection
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+    assert len(mem) == len(r_mem)
+    for a, b in zip(mem, r_mem):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-6)
+    assert nbytes == r_nbytes
+
+
+@pytest.mark.parametrize("selection", ["argmax_onehot", "threshold_onehot"])
+def test_sparse_allgather_matches_reference(selection):
+    cfg = SyncConfig(ratio=0.02, bucketed=True, bucket_cols=COLS,
+                     selection=selection)
+    _assert_agree(*_run_both(cfg))
+
+
+def test_bf16_wire_values_match_reference():
+    cfg = SyncConfig(ratio=0.02, bucketed=True, bucket_cols=COLS,
+                     value_dtype="bfloat16")
+    _assert_agree(*_run_both(cfg, seed=2))
+
+
+def test_dense_strategy_matches_reference():
+    cfg = SyncConfig(strategy="dense", bucketed=True, bucket_cols=COLS)
+    got, want = _run_both(cfg, seed=3)
+    _assert_agree(got, want)
+    for m in got[1]:
+        assert not m.any()  # all of u ships, nothing stays in memory
+
+
+def test_message_bytes_match_reference():
+    tree = {"w": torch.empty((300, 700), device="meta"),
+            "b": torch.empty((100,), device="meta")}
+    rtree = {"w": jax.ShapeDtypeStruct((300, 700), jnp.float32),
+             "b": jax.ShapeDtypeStruct((100,), jnp.float32)}
+    plan, rplan = bk.make_plan(tree), rbk.make_plan(rtree)
+    for cfg in (SyncConfig(ratio=0.01, bucketed=True),
+                SyncConfig(ratio=0.05, bucketed=True, value_dtype="bfloat16"),
+                SyncConfig(strategy="dense", bucketed=True)):
+        assert bucketed_message_bytes(cfg, plan) == ref_message_bytes(
+            _ref_cfg(cfg), rplan)
+
+
+@pytest.mark.parametrize("change,name", [
+    (dict(strategy="hierarchical"), "hierarchical"),
+    (dict(wire="packed"), "packed"),
+    (dict(quant=15), "quant"),
+    (dict(local_steps=4), "local_steps"),
+    (dict(overlap=True), "overlap"),
+    (dict(bucketed=False), "bucketed=False"),
+])
+def test_unported_options_raise_by_name(change, name):
+    cfg = dataclasses.replace(SyncConfig(bucketed=True), **change)
+    with pytest.raises(NotImplementedError, match=name):
+        cfg.validate()
+
+
+@pytest.mark.parametrize("change", [dict(strategy="ring"),
+                                    dict(selection="sortnet"),
+                                    dict(wire="zip"),
+                                    dict(value_dtype="float16")])
+def test_unknown_values_raise(change):
+    with pytest.raises(ValueError):
+        dataclasses.replace(SyncConfig(bucketed=True), **change).validate()
+
+
+def test_more_than_one_worker_raises(monkeypatch):
+    monkeypatch.setattr(dist, "world_size", lambda: 2)
+    tree = {"w": torch.zeros((64, 512))}
+    plan = bk.make_plan(tree)
+    with pytest.raises(NotImplementedError, match="2 workers"):
+        bucketed_sync_gradients(SyncConfig(bucketed=True), plan,
+                                bk.init_bucket_memory(plan), tree, 0.1)
+
+
+def test_k_for_matches_reference():
+    for ratio, k_min, k_max in [(0.01, 1, None), (0.001, 3, None),
+                                (0.5, 1, 7)]:
+        cfg = SyncConfig(ratio=ratio, k_min=k_min, k_max=k_max)
+        rcfg = RefSyncConfig(ratio=ratio, k_min=k_min, k_max=k_max)
+        for c in (1, 33, 1024, 8192):
+            assert cfg.k_for(c) == rcfg.k_for(c)
