@@ -6,32 +6,47 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 Phases, each of which fails the run with a non-zero exit:
 
 1. Device: a CUDA device must be present; prints its name and power limit.
-2. Build every kernel of the main path from ``src/repro_torch/kernels/csrc``
-   with nvcc; prints the build seconds and the compiler's register report.
-3. Each kernel against its plain PyTorch version on the card, on the main
-   path's shape and on edge cases (tie-heavy, zero-heavy, eta = 0, wide
-   rows, odd widths, unaligned rows): outputs must match bit for bit.
-   Times the kernel, the plain version and one PyTorch library call that
-   computes the same function, with CUDA events, beside the bandwidth bound.
-4. The main path: ``train()`` of the bucketed Mem-SGD step on qwen3-4b at
-   full width, depth cut to 4 layers, from the port's own seeded init.
-   Launch counts are zeroed just before and read just after. Then a few
-   more steps run under torch.profiler: wall and device-busy time per
-   step, and the kernels that take the most device time.
-5. A small input: one train step of the qwen3-4b smoke config in float32
-   on the card and on the CPU (the plain versions) must agree.
+2. Build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc, one
+   nvcc per source, all started together; prints the build seconds and
+   the compiler's register report.
+3. Each kernel against its plain PyTorch version on the card, on the
+   paths' shapes and on edge cases (tie-heavy, zero-heavy and signed-zero
+   rows, eta = 0, k = 1 and k = C, odd widths, unaligned rows, wide rows,
+   rows wider than shared memory): outputs must match bit for bit. Times
+   each kernel, its plain version and one PyTorch library call that
+   computes the same function, with CUDA events, beside the bandwidth
+   bound. Then the cutover sweep: the loop top-k against the threshold
+   top-k at C = 2560 and 1024 over k, and the largest k at which the loop
+   wins.
+4. The bucketed path: ``train()`` of the bucketed Mem-SGD step on
+   qwen3-4b at full width, depth cut to 4 layers, from the port's own
+   seeded init (the fused kernel).
+5. The per-leaf path (the train CLI's default): ``train()`` with
+   ``bucketed=False`` on the same model, once with the default selection
+   ``argmax_onehot`` (the loop top-k kernel) and once with
+   ``topk_scatter`` (the threshold top-k kernel). The two runs' losses
+   must be identical: the contract fixes the selection.
+   For every path run, every launch count is zeroed just before it and
+   read just after; after each path, a few more steps run under
+   torch.profiler: wall and device-busy time per step, and the kernels
+   that take the most device time.
+6. A small input: one train step of the qwen3-4b smoke config in float32
+   on the card and on the CPU (the plain versions) must agree, on the
+   bucketed and on the per-leaf path.
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
 then the result line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -46,6 +61,11 @@ F32_FLOPS_PER_S = 67e12
 ARCH, N_LAYERS, BATCH, SEQ, STEPS = "qwen3-4b", 4, 4, 512, 4
 RATIO, ETA = 0.01, 0.5
 PATH_SHAPE, PATH_K = (1154560, 1024), 10  # its sparse bucket, k = 0.01 * 1024
+# the per-leaf path selects k = round(0.01 * 2560) = 26 per 2560-wide row
+LEAF_K = 26
+KERNEL_SOURCES = ("fused_memsgd", "topk_select")
+TOPK_KERNELS = ("row_topk_loop", "row_topk_threshold")
+SWEEP_KS = (1, 2, 4, 8, 12, 14, 16, 26, 32, 64)
 
 
 def fail(msg: str) -> None:
@@ -72,13 +92,36 @@ def phase_device() -> str:
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
-    t0 = time.perf_counter()
-    path = _build.build("fused_memsgd")
-    print(f"build: fused_memsgd in {time.perf_counter() - t0:.2f} s -> "
-          f"{os.path.relpath(path, ROOT)}")
-    for line in _build.BUILD_LOGS.get("fused_memsgd", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    def timed(name):
+        t0 = time.perf_counter()
+        path = _build.build(name)
+        return path, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        futures = {n: pool.submit(timed, n) for n in KERNEL_SOURCES}
+        built = {n: f.result() for n, f in futures.items()}
+    for name, (path, secs) in built.items():
+        print(f"build: {name} in {secs:.2f} s -> "
+              f"{os.path.relpath(path, ROOT)}")
+        for line in _build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}")
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
+    from repro_torch.kernels.topk_select import LAUNCHES
+
+    return {"fused_memsgd": fused_memsgd_cuda.launches, **LAUNCHES}
+
+
+def zero_launch_counts() -> None:
+    from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
+    from repro_torch.kernels.topk_select import LAUNCHES
+
+    fused_memsgd_cuda.launches = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -204,23 +247,196 @@ def phase_kernel(dev) -> dict:
     }
 
 
-def phase_train(dev) -> int:
-    """The main path through ``train()``; returns the fused kernel's
-    launches in that run."""
+def leaf_row_shapes() -> collections.Counter:
+    """The per-leaf path's top-k shapes: (rows, C) of each sparse leaf with
+    its column axis last, and how many leaves give each, per step."""
     from repro_torch.configs import get_config
-    from repro_torch.core.buckets import make_plan
-    from repro_torch.core.distributed import SyncConfig, bucketed_message_bytes
-    from repro_torch.data import DeviceBatcher, token_batches
-    from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
-    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.core.distributed import SyncConfig
+    from repro_torch.launch.sharding import sync_col_axes
     from repro_torch.models import build_model
-    from repro_torch.utils.telemetry import Telemetry
     from repro_torch.utils.tree import tree_leaves
 
-    class StepClock(Telemetry):
-        """The driver's telemetry sink, stamping the host clock as each
-        step's loss is drained (one step late, so after the step ran)."""
+    shapes = build_model(get_config(ARCH).replace(
+        n_layers=N_LAYERS)).param_shapes()
+    dense_below = SyncConfig().dense_below
+    out = collections.Counter()
+    for p, c in zip(tree_leaves(shapes), tree_leaves(sync_col_axes(shapes))):
+        if p.numel() >= dense_below:
+            out[(p.numel() // p.shape[c], p.shape[c])] += 1
+    return out
 
+
+def topk_library(x, k):
+    """One PyTorch library top-k (torch.topk on |x| + gather); a yardstick
+    only, never called by the port. torch.topk promises no tie order, so
+    it is timed, not compared."""
+    _, idx = torch.topk(torch.abs(x), k, dim=1)
+    return torch.gather(x, 1, idx), idx
+
+
+def topk_cases(dev, leaf_shapes):
+    """Yields (label, x, k) on the card, made from seeds, one at a time."""
+    gen = torch.Generator(device=dev)
+
+    def randn(shape, seed):
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for (R, C) in [(8, 64), (16, 128), (24, 100), (3, 33), (1, 257),
+                   (5, 77), (8, 300)]:
+        for k in (1, 4, 16):
+            if k <= C:
+                yield f"({R},{C}) k={k}", randn((R, C), R * C + k), k
+    halves = torch.round(randn((16, 256), 1) * 2) / 2
+    for k in (1, 8, 32):
+        yield f"tie-heavy halves (16,256) k={k}", halves, k
+    gen.manual_seed(3)
+    ints = torch.randint(-3, 4, (32, 512), generator=gen, device=dev).float()
+    yield "tie-heavy small integers (32,512) k=24", ints, 24
+    z = torch.zeros((8, 96), device=dev)
+    z[:, ::3] = -0.0
+    z[:, 5], z[:, 40] = 3.0, -1.0
+    yield "zero-heavy, signed zeros (8,96) k=8", z, 8
+    zeros = torch.zeros((4, 64), device=dev)
+    zeros[:, 1::2] = -0.0
+    yield "all-zero rows, signed zeros (4,64) k=10", zeros, 10
+    for (R, C) in [(8, 300), (4, 33)]:
+        yield f"k=C ({R},{C}) k={C}", randn((R, C), 4 + C), C
+    yield "C not a multiple of 4 (6,1023) k=26", randn((6, 1023), 5), 26
+    flat = randn((8 * 1024 + 1,), 6)
+    yield "unaligned rows (8,1024) k=16", flat[1:].view(8, 1024), 16
+    for k in (5, 200):
+        yield f"C=20000 (6,20000) k={k}", randn((6, 20000), 7), k
+    for k in (7, 100):
+        yield (f"C=60000, wider than shared memory (3,60000) k={k}",
+               randn((3, 60000), 8), k)
+    for i, (R, C) in enumerate(sorted(leaf_shapes)):
+        for k in (LEAF_K, 3):
+            yield (f"per-leaf path ({R},{C}) k={k}",
+                   randn((R, C), 20 + i) * 0.01, k)
+
+
+def topk_wrappers() -> dict:
+    from repro_torch.kernels.topk_select import (row_topk_loop_cuda,
+                                                 row_topk_threshold_cuda)
+
+    return {"row_topk_loop": row_topk_loop_cuda,
+            "row_topk_threshold": row_topk_threshold_cuda}
+
+
+def phase_topk(dev, leaf_shapes) -> list:
+    """Both top-k kernels bitwise against the plain version, then their
+    times per per-leaf step (the sum over the path's leaves) beside the
+    plain version's, the library call's and the bound."""
+    from repro_torch.kernels.ref import row_topk_ref
+
+    fns = topk_wrappers()
+    worst = {name: 0.0 for name in TOPK_KERNELS}
+    bad = []
+    for label, x, k in topk_cases(dev, leaf_shapes):
+        want = row_topk_ref(x, k)
+        got = {name: fn(x, k) for name, fn in fns.items()}
+        torch.cuda.synchronize()
+        verdicts = []
+        for name, out in got.items():
+            ok = all(same_bits(a, b) for a, b in zip(out, want))
+            err = float((out[0] - want[0]).abs().max())
+            worst[name] = max(worst[name], err)
+            if not ok:
+                bad.append(f"{name} {label}")
+            verdicts.append(f"{name} {'bitwise equal' if ok else 'MISMATCH'}"
+                            f" (max |err| {err:g})")
+        print(f"  top-k {label}: {'; '.join(verdicts)}")
+        del x, got, want
+    if bad:
+        fail(f"top-k kernels differ from their plain version on {bad}")
+    for name, fn in fns.items():
+        try:
+            fn(torch.zeros((8, 64), device=dev, dtype=torch.bfloat16), 4)
+        except TypeError as e:
+            print(f"  {name} bf16 on the card raises by name: {e}")
+        else:
+            fail(f"a bf16 CUDA tensor reached {name}")
+
+    step = {name: collections.Counter() for name in TOPK_KERNELS}
+    nbytes = nops = 0
+    gen = torch.Generator(device=dev)
+    for i, ((R, C), n) in enumerate(sorted(leaf_shapes.items())):
+        gen.manual_seed(30 + i)
+        x = torch.randn((R, C), generator=gen, device=dev) * 0.01
+        plain_ms = cuda_ms(lambda: row_topk_ref(x, LEAF_K), iters=2)
+        library_ms = cuda_ms(lambda: topk_library(x, LEAF_K), iters=3)
+        line = []
+        for name, fn in fns.items():
+            ms = cuda_ms(lambda: fn(x, LEAF_K), iters=10, warmup=2)
+            step[name].update(ms=n * ms, plain_ms=n * plain_ms,
+                              library_ms=n * library_ms)
+            line.append(f"{name} {ms:.4f} ms")
+        nbytes += n * (R * C * 4 + R * LEAF_K * 8)
+        nops += n * R * C  # one magnitude compare per element
+        print(f"  top-k ({R},{C}) k={LEAF_K} x{n} per step: "
+              f"{', '.join(line)}, plain {plain_ms:.4f} ms, library "
+              f"{library_ms:.4f} ms")
+        del x
+        torch.cuda.empty_cache()
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = nops / F32_FLOPS_PER_S * 1e3
+    out = []
+    for name, line in zip(TOPK_KERNELS, ("285", "315")):
+        t = step[name]
+        print(f"  {name} per per-leaf step ({sum(leaf_shapes.values())} "
+              f"launches): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+              f"bound {max(byte_ms, op_ms):.4f} ms ({nbytes} bytes)")
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/topk_select.cu",
+            "replaces": f"src/repro/kernels/topk_select.py:{line}",
+            "max_abs_err": worst[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": t["library_ms"], "ok": True,
+        })
+    return out
+
+
+def phase_cutover(dev) -> None:
+    """Loop against threshold top-k over k at two row widths, on ~420 MB
+    of rows each; prints the largest k up to which the loop wins at every
+    swept k (the candidate for TOPK_LOOP_CUTOVER["cuda"])."""
+    from repro_torch.utils.platform import topk_loop_cutover
+
+    fns = topk_wrappers()
+    gen = torch.Generator(device=dev)
+    wins = {}
+    for C in (2560, 1024):
+        R = 40960 * 2560 // C
+        gen.manual_seed(C)
+        x = torch.randn((R, C), generator=gen, device=dev)
+        last, streak = 0, True
+        for k in SWEEP_KS:
+            loop = cuda_ms(lambda: fns["row_topk_loop"](x, k), iters=5)
+            thr = cuda_ms(lambda: fns["row_topk_threshold"](x, k), iters=5)
+            streak = streak and loop < thr
+            if streak:
+                last = k
+            winner = "loop" if loop < thr else "threshold"
+            print(f"  cutover ({R},{C}) k={k}: loop {loop:.4f} ms, "
+                  f"threshold {thr:.4f} ms -> {winner}")
+        wins[C] = last
+        del x
+        torch.cuda.empty_cache()
+    print(f"cutover: the loop wins at every swept k up to {wins} (by C), "
+          f"{min(wins.values())} at both widths; TOPK_LOOP_CUTOVER['cuda'] "
+          f"= {topk_loop_cutover('cuda')}")
+
+
+def step_clock():
+    """The train loop's telemetry sink, stamping the host clock as each
+    step's loss is drained (one step late, so after the step ran)."""
+    from repro_torch.utils.telemetry import Telemetry
+
+    class StepClock(Telemetry):
         def __init__(self):
             super().__init__()
             self.times = []
@@ -230,35 +446,33 @@ def phase_train(dev) -> int:
             self.times.append(time.perf_counter())
             return rec
 
-    cfg = get_config(ARCH).replace(n_layers=N_LAYERS)
-    model = build_model(cfg)
-    tc = TrainConfig(optimizer="memsgd", eta=ETA,
-                     sync=SyncConfig(ratio=RATIO, bucketed=True))
-    dense_sync = SyncConfig(strategy="dense", bucketed=True)
-    plan = make_plan(model.param_shapes(), cols=tc.sync.bucket_cols,
-                     dense_below=tc.sync.dense_below)
-    sparse = [s.shape for s in plan.buckets if s.kind == "sparse"]
-    print(f"train: {ARCH} {N_LAYERS} layers at full width, "
-          f"{model.n_params()} params, buckets "
-          f"{[(s.kind, s.shape) for s in plan.buckets]}, k="
-          f"{tc.sync.k_for(tc.sync.bucket_cols)}, batch {BATCH} x seq {SEQ}, "
-          f"wire {bucketed_message_bytes(tc.sync, plan)} B/step (dense "
-          f"{bucketed_message_bytes(dense_sync, plan)} B)")
-    if sparse != [PATH_SHAPE]:
-        fail(f"sparse buckets {sparse}, expected [{PATH_SHAPE}]")
+    return StepClock()
+
+
+def run_path(label, model, tc, dev, expect: dict):
+    """One path's run through ``train()`` for STEPS steps from the seeded
+    init: every launch count zeroed just before, read just after, and
+    checked against ``expect`` (kernel -> launches; every other kernel 0).
+    Fails unless the losses are finite from near ln V and every parameter
+    moved somewhere. Returns (losses, counts, params, memory, batches)."""
+    from repro_torch.data import DeviceBatcher, token_batches
+    from repro_torch.launch.train import train
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = model.cfg
     params = model.init(seed=0, device=dev)
     before = [p.clone() for p in tree_leaves(params)]
     batches = DeviceBatcher(
         token_batches(cfg.vocab_size, BATCH, SEQ, seed=0), dev)
-    tel = StepClock()
+    tel = step_clock()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_memsgd_cuda.launches = 0
+    zero_launch_counts()
     params, memory, _, count, _ = train(
         model, tc, batches, STEPS, device=dev, params=params, log_every=1,
         telemetry=tel)
     torch.cuda.synchronize()
-    launches = fused_memsgd_cuda.launches
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = tel.losses
     # a loss is drained once the NEXT step is issued, so each interval
@@ -267,30 +481,100 @@ def phase_train(dev) -> int:
     step_ms = [1e3 * (b - a) for a, b in zip(tel.times, tel.times[1:-1])]
     changed = sum(int((a != b).sum())
                   for a, b in zip(before, tree_leaves(params)))
-    print(f"train: losses {losses}; step ms after the first {step_ms} "
+    del before
+    print(f"{label}: losses {losses}; step ms after the first {step_ms} "
           f"(mean {sum(step_ms) / len(step_ms):.2f}); peak memory "
-          f"{peak / 2**30:.2f} GiB; fused_memsgd launches {launches}; "
+          f"{peak / 2**30:.2f} GiB; launches {counts}; "
           f"{changed} parameter entries changed")
     lnv = math.log(cfg.vocab_size)
     if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
-        fail(f"expected {STEPS} finite losses, got {losses}")
+        fail(f"{label}: expected {STEPS} finite losses, got {losses}")
     if not lnv - 1 <= losses[0] <= lnv + 2:
-        fail(f"first loss {losses[0]} outside [ln V - 1, ln V + 2] "
+        fail(f"{label}: first loss {losses[0]} outside [ln V - 1, ln V + 2] "
              f"= [{lnv - 1:.3f}, {lnv + 2:.3f}]")
-    if launches != STEPS * len(sparse):
-        fail(f"fused_memsgd launched {launches} times in {STEPS} steps, "
-             f"expected {STEPS * len(sparse)}")
+    want = {name: expect.get(name, 0) for name in counts}
+    if counts != want:
+        fail(f"{label}: launches {counts} in {STEPS} steps, expected {want}")
     if count != STEPS or changed == 0:
-        fail(f"count {count}, {changed} parameter entries changed")
+        fail(f"{label}: count {count}, {changed} parameter entries changed")
+    return losses, counts, params, memory, batches
+
+
+def full_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    return build_model(get_config(ARCH).replace(n_layers=N_LAYERS))
+
+
+def phase_bucketed(dev) -> int:
+    """The bucketed path; returns the fused kernel's launches in its run."""
+    from repro_torch.core.buckets import make_plan
+    from repro_torch.core.distributed import SyncConfig, bucketed_message_bytes
+    from repro_torch.launch.train import TrainConfig
+
+    model = full_model()
+    tc = TrainConfig(optimizer="memsgd", eta=ETA,
+                     sync=SyncConfig(ratio=RATIO, bucketed=True))
+    dense_sync = SyncConfig(strategy="dense", bucketed=True)
+    plan = make_plan(model.param_shapes(), cols=tc.sync.bucket_cols,
+                     dense_below=tc.sync.dense_below)
+    sparse = [s.shape for s in plan.buckets if s.kind == "sparse"]
+    print(f"bucketed path: {ARCH} {N_LAYERS} layers at full width, "
+          f"{model.n_params()} params, buckets "
+          f"{[(s.kind, s.shape) for s in plan.buckets]}, k="
+          f"{tc.sync.k_for(tc.sync.bucket_cols)}, batch {BATCH} x seq {SEQ}, "
+          f"wire {bucketed_message_bytes(tc.sync, plan)} B/step (dense "
+          f"{bucketed_message_bytes(dense_sync, plan)} B)")
+    if sparse != [PATH_SHAPE]:
+        fail(f"sparse buckets {sparse}, expected [{PATH_SHAPE}]")
+    _, counts, params, memory, batches = run_path(
+        "bucketed path", model, tc, dev,
+        {"fused_memsgd": STEPS * len(sparse)})
     profile_steps(model, tc, params, memory, batches, dev)
+    return counts["fused_memsgd"]
+
+
+def phase_leaf(dev, leaf_shapes) -> dict:
+    """The per-leaf path with each selection; returns each top-k kernel's
+    launches in its run."""
+    from repro_torch.core.distributed import SyncConfig, message_bytes
+    from repro_torch.launch.sharding import sync_col_axes
+    from repro_torch.launch.train import TrainConfig
+
+    model = full_model()
+    n_leaves = sum(leaf_shapes.values())
+    shapes = model.param_shapes()
+    cols = sync_col_axes(shapes)
+    print(f"per-leaf path: {ARCH} {N_LAYERS} layers at full width, "
+          f"{n_leaves} sparse leaves {dict(leaf_shapes)} (rows, C), k="
+          f"{SyncConfig(ratio=RATIO).k_for(2560)}, batch {BATCH} x seq "
+          f"{SEQ}, wire {message_bytes(SyncConfig(ratio=RATIO), shapes, cols)}"
+          f" B/step (dense "
+          f"{message_bytes(SyncConfig(strategy='dense'), shapes, cols)} B)")
+    launches, losses = {}, {}
+    for selection, kernel in (("argmax_onehot", "row_topk_loop"),
+                              ("topk_scatter", "row_topk_threshold")):
+        tc = TrainConfig(optimizer="memsgd", eta=ETA,
+                         sync=SyncConfig(ratio=RATIO, selection=selection))
+        label = f"per-leaf path, selection={selection}"
+        losses[selection], counts, params, memory, batches = run_path(
+            label, model, tc, dev, {kernel: STEPS * n_leaves})
+        launches[kernel] = counts[kernel]
+        profile_steps(model, tc, params, memory, batches, dev)
+        del params, memory, batches
+        torch.cuda.empty_cache()
+    if losses["argmax_onehot"] != losses["topk_scatter"]:
+        fail(f"the two selections' losses differ: {losses}")
+    print("per-leaf path: the two selections' losses are identical")
     return launches
 
 
 def profile_steps(model, tc, params, memory, batches, dev, n: int = 5) -> None:
-    """Where a main-path step's time goes: torch.profiler over ``n``
-    steady steps continuing the run above (launches here are not
-    counted). Prints the wall time per step, the device's busy time per
-    step (kernel time, one stream) and the kernels that take the most."""
+    """Where a path's step time goes: torch.profiler over ``n`` steady
+    steps continuing the run above (launches here are not counted).
+    Prints the wall time per step, the device's busy time per step
+    (kernel time, one stream) and the kernels that take the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -319,15 +603,15 @@ def profile_steps(model, tc, params, memory, batches, dev, n: int = 5) -> None:
           f"idle {100 * (1 - busy / wall):.1f}%)")
     for e in top:
         print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms/step "
-              f"x{e.count // n:<4d} {e.key[:90]}")
+              f"x{e.count // n:<4d} {e.key[:150]}")
 
 
 def phase_small(dev) -> None:
     """One float32 step of the smoke config on the card and on the CPU
-    (plain versions) from the same params and batch must agree: loss to
-    1e-5 relative, the applied update to 1e-3 relative L2 (matrix
-    products sum in another order on the card, which can flip a rare
-    near-tie in the selection)."""
+    (plain versions) from the same params and batch must agree, on the
+    bucketed and on the per-leaf path: loss to 1e-5 relative, the applied
+    update to 1e-3 relative L2 (matrix products sum in another order on
+    the card, which can flip a rare near-tie in the selection)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.distributed import SyncConfig
     from repro_torch.data import token_batches
@@ -338,39 +622,48 @@ def phase_small(dev) -> None:
 
     cfg = get_smoke_config(ARCH).replace(compute_dtype="float32")
     model = build_model(cfg)
-    tc = TrainConfig(eta=ETA, sync=SyncConfig(ratio=RATIO, bucketed=True))
     batch = next(token_batches(cfg.vocab_size, 4, 64, seed=1))
     host = model.init(seed=0, device="cpu")
-    out = {}
-    for d in (torch.device("cpu"), dev):
-        params, memory, opt, count = init_train_state(
-            model, tc, device=d,
-            params=tree_map(lambda t: t.to(d, copy=True), host))
-        before = [p.clone() for p in tree_leaves(params)]
-        step = make_train_step(model, tc)
-        params, memory, opt, count, met = step(
-            params, memory, opt, count,
-            {k: torch.as_tensor(v, device=d) for k, v in batch.items()})
-        upd = torch.cat([(a - b).reshape(-1).cpu() for a, b in
-                         zip(before, tree_leaves(params))])
-        out[d.type] = (float(met["loss"]), upd)
-    (l_cpu, u_cpu), (l_gpu, u_gpu) = out["cpu"], out["cuda"]
-    rel_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
-    rel_upd = float((u_gpu - u_cpu).norm() / u_cpu.norm())
-    print(f"small input: loss card {l_gpu} vs cpu {l_cpu} (rel {rel_loss:.2e}),"
-          f" update rel L2 {rel_upd:.2e}")
-    if rel_loss > 1e-5 or rel_upd > 1e-3:
-        fail("the card's step disagrees with the CPU's on the small input")
+    for bucketed in (True, False):
+        tc = TrainConfig(eta=ETA, sync=SyncConfig(ratio=RATIO,
+                                                  bucketed=bucketed))
+        out = {}
+        for d in (torch.device("cpu"), dev):
+            params, memory, opt, count = init_train_state(
+                model, tc, device=d,
+                params=tree_map(lambda t: t.to(d, copy=True), host))
+            before = [p.clone() for p in tree_leaves(params)]
+            step = make_train_step(model, tc)
+            params, memory, opt, count, met = step(
+                params, memory, opt, count,
+                {k: torch.as_tensor(v, device=d) for k, v in batch.items()})
+            upd = torch.cat([(a - b).reshape(-1).cpu() for a, b in
+                             zip(before, tree_leaves(params))])
+            out[d.type] = (float(met["loss"]), upd)
+        (l_cpu, u_cpu), (l_gpu, u_gpu) = out["cpu"], out["cuda"]
+        rel_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+        rel_upd = float((u_gpu - u_cpu).norm() / u_cpu.norm())
+        path = "bucketed" if bucketed else "per-leaf"
+        print(f"small input, {path} path: loss card {l_gpu} vs cpu {l_cpu} "
+              f"(rel {rel_loss:.2e}), update rel L2 {rel_upd:.2e}")
+        if rel_loss > 1e-5 or rel_upd > 1e-3:
+            fail(f"the card's {path} step disagrees with the CPU's on the "
+                 "small input")
 
 
 def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    kernel = phase_kernel(dev)
-    kernel["launches"] = phase_train(dev)
+    leaf_shapes = leaf_row_shapes()
+    kernels = [phase_kernel(dev)] + phase_topk(dev, leaf_shapes)
+    phase_cutover(dev)
+    launches = {"fused_memsgd": phase_bucketed(dev)}
+    launches.update(phase_leaf(dev, leaf_shapes))
     phase_small(dev)
-    print(json.dumps({"kernels": [kernel]}))
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ conversion is a leafwise copy through numpy:
 
     params = params_from_jax(jax.tree.map(np.asarray, ref_params), device)
 
-The reference holds the bucket memory per worker as (W, rows, cols); the
-port holds one worker's (rows, cols).
+The reference holds each worker's memory behind a leading worker axis:
+(W, rows, cols) per bucket on the bucketed path, (W,) + shape per leaf on
+the per-leaf path. The port runs one worker and drops that axis.
 """
 from __future__ import annotations
 
@@ -46,11 +47,19 @@ def params_to_jax(params):
     return tree_map(_to_numpy, params)
 
 
-def memory_from_jax(bufs, device="cpu"):
-    """Reference bucket memory (W, rows, cols) -> worker 0's (rows, cols)."""
-    return tuple(_to_torch(np.asarray(b)[0], device) for b in bufs)
+def memory_from_jax(memory, device="cpu"):
+    """Reference memory -> worker 0's: a tuple of bucket buffers
+    (W, rows, cols) -> (rows, cols), or a per-leaf tree (W,) + shape ->
+    shape."""
+    if isinstance(memory, dict):
+        return tree_map(lambda a: _to_torch(np.asarray(a)[0], device), memory)
+    return tuple(_to_torch(np.asarray(b)[0], device) for b in memory)
 
 
-def memory_to_jax(bufs):
-    """Port bucket memory (rows, cols) -> the reference's (1, rows, cols)."""
-    return tuple(_to_numpy(b)[None] for b in bufs)
+def memory_to_jax(memory):
+    """Port memory -> the reference's, with a worker axis of 1: bucket
+    buffers (rows, cols) -> (1, rows, cols), or a per-leaf tree shape ->
+    (1,) + shape."""
+    if isinstance(memory, dict):
+        return tree_map(lambda t: _to_numpy(t)[None], memory)
+    return tuple(_to_numpy(b)[None] for b in memory)

@@ -3,21 +3,23 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc`` for ``sm_90a`` (Hopper) into
 ``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root, at
-first use. The hash covers the source and the compiler flags, so an edited
-source builds anew and an unchanged one is reused. Nothing here runs when
-the module is imported: building needs ``nvcc``, which only a machine with
-the CUDA toolkit has.
+first use. The hash covers the source, the headers of ``csrc/`` it
+includes and the compiler flags, so an edited source or header builds anew
+and an unchanged one is reused. Nothing here runs when the module is
+imported: building needs ``nvcc``, which only a machine with the CUDA
+toolkit has.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -49,12 +51,33 @@ def nvcc_path() -> str:
     )
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes with
+    ``#include "..."``, directly or through another header, in the order
+    first reached."""
+    out: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            if (CSRC / inc).is_file():
+                todo.append(CSRC / inc)
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where ``csrc/<name>.cu``'s library lives: the name carries a hash of
+    the source, of every header it includes and of the compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

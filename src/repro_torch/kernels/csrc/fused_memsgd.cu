@@ -15,14 +15,15 @@
 // the row's u in shared memory for the selection, and writes m', vals and
 // idx once, so no intermediate touches device memory.
 //
-// Design: one warp per row, up to four rows per block. The selection runs
-// k rounds of a warp-wide max over a 64-bit key (|u| bits << 32 | ~column):
-// the largest magnitude wins, and on equal magnitude the lowest column
-// (largest ~column) wins. Round r keeps only keys below round r-1's winner,
-// so no entry is marked or rewritten, and after k rounds the selected set
-// is exactly the keys >= the last winner. This costs O(k * C) shared-memory
-// reads per row: fine at the main path's k = 10, not at large k, where a
-// threshold (bisection) select is needed. That redesign is later work.
+// Design: one warp per row, up to four rows per block. The selection is
+// topk::loop_select (topk_common.cuh): k rounds of a warp-wide max over a
+// 64-bit key (|u| bits << 32 | ~column), where the largest magnitude wins,
+// and on equal magnitude the lowest column (largest ~column) wins. Round r
+// keeps only keys below round r-1's winner, so no entry is marked or
+// rewritten, and after k rounds the selected set is exactly the keys >= the
+// last winner. This costs O(k * C) shared-memory reads per row: fine at the
+// main path's k = 10, not at large k, where the threshold select of
+// topk_select.cu is needed. Bringing it into this kernel is later work.
 //
 // Rows need no padding: a warp past the last row returns. Rows up to
 // C = 58112 fit in shared memory (227 KB per block).
@@ -30,26 +31,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "topk_common.cuh"
+
 namespace {
 
 constexpr int kMaxRowsPerBlock = 4;
 constexpr size_t kSmemLimit = 232448;  // 227 KB, the most a block may use
 constexpr size_t kDefaultSmem = 48 * 1024;
-
-__device__ __forceinline__ unsigned long long sel_key(float u, int j) {
-  const unsigned int mag = __float_as_uint(u) & 0x7fffffffu;
-  return (static_cast<unsigned long long>(mag) << 32) |
-         static_cast<unsigned int>(~j);
-}
-
-__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o > v ? o : v;
-  }
-  return v;
-}
 
 __device__ __forceinline__ float fused_u(float m, float g, float eta) {
   return __fadd_rn(m, __fmul_rn(eta, g));
@@ -88,23 +76,10 @@ __global__ void fused_memsgd_kernel(const float* __restrict__ m,
   }
   __syncwarp();
 
-  // k rounds: the largest key strictly below the previous winner
-  unsigned long long prev = ~0ull;
+  // k rounds of the warp-wide key max; prev is the last winner's key
   const size_t out = static_cast<size_t>(row) * k;
-  for (int r = 0; r < k; ++r) {
-    unsigned long long best = 0ull;  // below every real key
-    for (int j = lane; j < cols; j += 32) {
-      const unsigned long long key = sel_key(u[j], j);
-      if (key < prev && key > best) best = key;
-    }
-    best = warp_max(best);
-    if (lane == 0) {
-      const int j = static_cast<int>(~static_cast<unsigned int>(best));
-      vals[out + r] = u[j];
-      idx[out + r] = j;
-    }
-    prev = best;
-  }
+  const unsigned long long prev =
+      topk::loop_select(u, cols, k, lane, vals + out, idx + out);
 
   // m' = u with the k selected entries (keys >= the last winner) zeroed
   if (vec) {
@@ -113,16 +88,16 @@ __global__ void fused_memsgd_kernel(const float* __restrict__ m,
     for (int j = lane; j < (cols >> 2); j += 32) {
       float4 v = u4[j];
       const int c = j << 2;
-      if (sel_key(v.x, c) >= prev) v.x = 0.0f;
-      if (sel_key(v.y, c + 1) >= prev) v.y = 0.0f;
-      if (sel_key(v.z, c + 2) >= prev) v.z = 0.0f;
-      if (sel_key(v.w, c + 3) >= prev) v.w = 0.0f;
+      if (topk::sel_key(v.x, c) >= prev) v.x = 0.0f;
+      if (topk::sel_key(v.y, c + 1) >= prev) v.y = 0.0f;
+      if (topk::sel_key(v.z, c + 2) >= prev) v.z = 0.0f;
+      if (topk::sel_key(v.w, c + 3) >= prev) v.w = 0.0f;
       n4[j] = v;
     }
   } else {
     for (int j = lane; j < cols; j += 32) {
       const float v = u[j];
-      new_m[base + j] = sel_key(v, j) >= prev ? 0.0f : v;
+      new_m[base + j] = topk::sel_key(v, j) >= prev ? 0.0f : v;
     }
   }
 }

@@ -1,11 +1,20 @@
 """Public entry points for the port's kernels (counterpart of
 ``repro.kernels.ops``).
 
-``method`` keeps the reference's names and validation ("auto", "loop",
-"threshold"); every method gives the same contract (decreasing |v|, ties
-to the lowest index) and, in the port, runs the same kernel: the CUDA
-kernel's k rounds of warp max serve the main path's small k. A threshold
-(bisection) kernel for large k is later work.
+``method`` keeps the reference's names and validation:
+
+* ``"loop"``      — k rounds of a row max (``row_topk_loop``).
+* ``"threshold"`` — the exact bit-pattern bisection select
+  (``row_topk_threshold``), a fixed number of passes whatever k is.
+* ``"auto"``      — threshold for k above the device's measured cutover
+  (``repro_torch.utils.platform.topk_loop_cutover``), loop otherwise.
+
+Every method gives the same contract (decreasing |v|, ties to the lowest
+index), so all of them return bitwise-identical outputs. On CPU tensors
+every method runs the plain version (``ref.row_topk_ref``). The fused
+Mem-SGD kernel has only the loop select (its threshold branch is later
+work), so ``fused_memsgd_update`` validates ``method`` and runs the loop
+whatever it names.
 """
 from __future__ import annotations
 
@@ -15,16 +24,35 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
+from repro_torch.kernels.topk_select import (
+    row_topk_loop_cuda,
+    row_topk_threshold_cuda,
+)
+from repro_torch.utils.platform import topk_loop_cutover
 
 # the reference's Pallas tile height; see fused_memsgd_update
 DEFAULT_ROW_BLOCK = 8
 METHODS = ("auto", "loop", "threshold")
 
 
-def _resolve_method(method: str) -> str:
+def _resolve_method(method: str, k: int, device="cpu") -> str:
+    if method == "auto":
+        return "threshold" if k > topk_loop_cutover(device) else "loop"
     if method not in METHODS:
         raise ValueError(f"unknown top-k method {method!r}")
     return method
+
+
+def row_topk(x: torch.Tensor, k: int, method: str = "auto"
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row top-|.|-k of x (R, C) -> (vals (R, k), idx (R, k) int32).
+
+    The reference's ``row_block`` and ``col_block`` (its Pallas tile
+    sizes) have no counterpart: the CUDA kernels give each row its own
+    warp, read the whole row and mask the ragged edge themselves."""
+    if _resolve_method(method, k, x.device) == "threshold":
+        return row_topk_threshold_cuda(x, k)
+    return row_topk_loop_cuda(x, k)
 
 
 def fused_memsgd_update(
@@ -40,7 +68,7 @@ def fused_memsgd_update(
     and masks the ragged edge itself, so no padding is needed and the
     value does not change the result.
     """
-    _resolve_method(method)
+    _resolve_method(method, k, m.device)
     if row_block < 1:
         raise ValueError(f"row_block must be >= 1, got {row_block}")
     return fused_memsgd_cuda(m, g, eta, k)

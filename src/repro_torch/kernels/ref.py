@@ -7,7 +7,10 @@ Same contract as the reference's oracles (``repro.kernels.ref``):
   decreasing magnitude, ties broken by the LOWEST index. This is the
   iterative argmax (``torch.argmax`` returns the first maximal index on
   CPU and CUDA alike); ``torch.topk`` promises no tie order, so it is not
-  used.
+  used. It is the plain version of both top-k kernels (``row_topk_loop``
+  and ``row_topk_threshold``) and of every ``ops.row_topk`` method: the
+  contract fixes the output uniquely, so any exact algorithm returns it
+  bit for bit and no second plain version (a threshold select) is needed.
 * ``fused_memsgd_ref(m, g, eta, k)`` — the fused Mem-SGD step:
       u      = m + eta * g
       vals,i = row_topk(u, k)

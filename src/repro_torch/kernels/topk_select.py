@@ -1,0 +1,123 @@
+"""ctypes wrappers for the per-row top-k CUDA kernels (``csrc/topk_select.cu``).
+
+Ports of the Pallas TPU kernels of ``src/repro/kernels/topk_select.py``:
+
+* ``row_topk_loop_cuda(x, k)`` launches ``row_topk_loop`` (k rounds of
+  a warp-wide key max): ``row_topk_pallas(selection="loop")``.
+* ``row_topk_threshold_cuda(x, k)`` launches ``row_topk_threshold``
+  (exact bit-pattern bisection, then one select-and-order pass):
+  ``row_topk_tiled_pallas`` and ``row_topk_pallas(selection="threshold")``.
+  The kernel reads a whole row per pass, so the TPU kernels' row and
+  column tiles have no counterpart.
+
+Both return (vals (R, k) x.dtype, idx (R, k) int32): per row the k entries
+of largest |x|, in decreasing |x|, ties to the lowest column. They route on
+where ``x`` lies: a CPU tensor goes to the plain version
+(``ref.row_topk_ref``); a CUDA tensor launches a kernel, or the wrapper
+raises. The kernels take float32 only (the bf16 variants are not ported).
+``LAUNCHES`` counts each kernel's launches (plain integers; set them to 0
+to count one run).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import row_topk_ref
+
+# columns are int32 indices, rows an int32 grid
+MAX_COLS = 2**31 - 1
+MAX_ROWS = 2**31 - 1
+
+LAUNCHES = {"row_topk_loop": 0, "row_topk_threshold": 0}
+
+
+@functools.cache
+def _kernels():
+    lib = _build.load("topk_select")
+    p = ctypes.c_void_p
+    fns = {}
+    for name in LAUNCHES:
+        fn = getattr(lib, f"{name}_f32")
+        fn.argtypes = [p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def check_shape(x: torch.Tensor, k: int) -> None:
+    """Raise unless x is (R, C) with 1 <= k <= C (both paths)."""
+    if x.dim() != 2:
+        raise ValueError(f"row top-k takes an (R, C) tensor, got {tuple(x.shape)}")
+    C = x.shape[1]
+    if not 1 <= k <= C:
+        raise ValueError(f"need 1 <= k <= C, got k={k}, C={C}")
+
+
+def check_inputs(x: torch.Tensor, k: int) -> None:
+    """Raise on what the kernels do not take: a contiguous float32 (R, C)
+    tensor with 1 <= k <= C <= MAX_COLS and R <= MAX_ROWS."""
+    if x.dtype != torch.float32:
+        raise TypeError(
+            f"row top-k kernels take float32, got {x.dtype} (the bf16 "
+            "variants are not ported)")
+    check_shape(x, k)
+    if not x.is_contiguous():
+        raise ValueError("row top-k kernels take a contiguous tensor")
+    if x.shape[1] > MAX_COLS:
+        raise ValueError(f"C={x.shape[1]} exceeds {MAX_COLS} columns")
+    if x.shape[0] > MAX_ROWS:
+        raise ValueError(f"R={x.shape[0]} exceeds {MAX_ROWS} rows")
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"row top-k runs on CUDA tensors (or the plain version on CPU "
+            f"tensors), got {x.device}")
+    return False
+
+
+def _launch(name: str, x: torch.Tensor, k: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    check_inputs(x, k)
+    R, C = x.shape
+    vals = torch.empty((R, k), dtype=torch.float32, device=x.device)
+    idx = torch.empty((R, k), dtype=torch.int32, device=x.device)
+    if R == 0:
+        return vals, idx
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _kernels()[name](x.data_ptr(), R, C, k, vals.data_ptr(),
+                              idx.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return vals, idx
+
+
+def _row_topk(name: str, x: torch.Tensor, k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if _on_cpu(x):
+        check_shape(x, k)
+        return row_topk_ref(x, k)
+    return _launch(name, x, k)
+
+
+def row_topk_loop_cuda(x: torch.Tensor, k: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row top-|.|-k by k rounds of a row max (``row_topk_loop``)."""
+    return _row_topk("row_topk_loop", x, k)
+
+
+def row_topk_threshold_cuda(x: torch.Tensor, k: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row top-|.|-k by the exact threshold select
+    (``row_topk_threshold``)."""
+    return _row_topk("row_topk_threshold", x, k)

@@ -1,18 +1,27 @@
 """Train step + driver for PARALLEL-MEM-SGD on one device (port of
-``repro.launch.train`` for the bucketed path).
+``repro.launch.train`` for the per-leaf and the bucketed paths).
 
 ``make_train_step`` builds the step
 
     (params, memory, opt, count, batch) -> (params, memory, opt, count, metrics)
 
-Each step computes the gradient with autograd, runs the bucketed sync
-(``repro_torch.core.distributed.bucketed_sync_gradients``: one fused CUDA
-kernel launch per sparse bucket forms u = m + eta*g, selects the per-row
-top-k and leaves the residual as the new memory), and subtracts the
-synced update from the parameters. As the reference donates its step
-inputs, the port updates ``params`` IN PLACE and returns them; the old
-memory buffers are replaced by the kernel's output. ``count`` is a host
-integer, so the eta schedule never waits on the device.
+Each step computes the gradient with autograd, runs the sync and
+subtracts the synced update from the parameters:
+
+  * per-leaf (``sync.bucketed=False``, the train CLI's default):
+    ``repro_torch.core.distributed.sparse_sync_gradients`` forms
+    u = m + eta*g per leaf, selects the per-row top-k along the leaf's
+    column axis (``repro_torch.launch.sharding.sync_col_axes``) with one
+    top-k kernel launch per sparse leaf, and keeps u - own as the memory,
+    a param-shaped float32 tree;
+  * bucketed (``sync.bucketed=True``): ``bucketed_sync_gradients``, one
+    fused CUDA kernel launch per sparse bucket forms u, selects and leaves
+    the residual as the new memory, one (rows, cols) buffer per bucket.
+
+As the reference donates its step inputs, the port updates ``params`` IN
+PLACE and returns them; the old memory is replaced by the sync's output.
+``count`` is a host integer, so the eta schedule never waits on the
+device.
 
 Optimizer modes:
   * ``memsgd`` — paper Algorithm 1/2: update = comp_k(m + eta*g),
@@ -34,12 +43,15 @@ from repro_torch.core.distributed import (
     SyncConfig,
     bucketed_message_bytes,
     bucketed_sync_gradients,
+    message_bytes,
+    sparse_sync_gradients,
 )
 from repro_torch.data.pipeline import take
 from repro_torch.kernels.ref import eta32
+from repro_torch.launch.sharding import sync_col_axes
 from repro_torch.utils.platform import resolve_device
 from repro_torch.utils.telemetry import NonFiniteLossError, Telemetry
-from repro_torch.utils.tree import tree_flatten
+from repro_torch.utils.tree import tree_flatten, tree_map
 
 OPTIMIZERS = ("memsgd", "dense")
 UNPORTED_OPTIMIZERS = ("memsgd_momentum", "adam_compressed")
@@ -75,7 +87,10 @@ def _sync_config(tc: TrainConfig) -> SyncConfig:
     return dataclasses.replace(tc.sync, strategy=strategy).validate()
 
 
-def _bucket_plan(sync: SyncConfig, pshapes) -> bk.BucketPlan:
+def _bucket_plan(sync: SyncConfig, pshapes):
+    """The bucket plan of the bucketed path; None on the per-leaf path."""
+    if not sync.bucketed:
+        return None
     return bk.make_plan(pshapes, cols=sync.bucket_cols,
                         dense_below=sync.dense_below)
 
@@ -83,22 +98,31 @@ def _bucket_plan(sync: SyncConfig, pshapes) -> bk.BucketPlan:
 def init_train_state(model, tc: TrainConfig, *, device="cuda", seed: int = 0,
                      params=None):
     """Returns (params, memory, opt, count): the port's seeded init on
-    ``device`` (or the given ``params``), zero float32 bucket memory (one
-    (rows, cols) buffer per bucket), no optimizer state, count 0."""
+    ``device`` (or the given ``params``), zero float32 memory, no optimizer
+    state, count 0. The memory is a param-shaped tree on the per-leaf path
+    and one (rows, cols) buffer per bucket on the bucketed path (the
+    reference's carry a leading worker axis; the port runs one worker)."""
     device = resolve_device(device)
     plan = _bucket_plan(_sync_config(tc), model.param_shapes())
     if params is None:
         params = model.init(seed=seed, device=device)
-    memory = bk.init_bucket_memory(plan, device=device)
+    if plan is not None:
+        memory = bk.init_bucket_memory(plan, device=device)
+    else:
+        memory = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=device), params)
     return params, memory, (), 0
 
 
 def make_train_step(model, tc: TrainConfig):
     """Builds the train step (see the module docstring). It runs on the
-    device its inputs lie on; ``step.sync`` and ``step.plan`` are the
-    validated sync config and the bucket plan it runs with."""
+    device its inputs lie on; ``step.sync``, ``step.plan`` (None on the
+    per-leaf path) and ``step.col_axes`` are the validated sync config,
+    the bucket plan and the per-leaf column axes it runs with."""
     sync = _sync_config(tc)
-    plan = _bucket_plan(sync, model.param_shapes())
+    pshapes = model.param_shapes()
+    plan = _bucket_plan(sync, pshapes)
+    col_axes = sync_col_axes(pshapes)
     eta_fn = _eta_schedule(tc)
 
     def step(params, memory, opt, count, batch):
@@ -107,17 +131,22 @@ def make_train_step(model, tc: TrainConfig):
         loss, metrics = model.loss(treedef.unflatten(live), batch)
         grads = torch.autograd.grad(loss, live)
         del live, loss
-        update, new_memory, _ = bucketed_sync_gradients(
-            sync, plan, memory, treedef.unflatten(grads), eta_fn(count))
+        if plan is not None:
+            update, new_memory, _ = bucketed_sync_gradients(
+                sync, plan, memory, treedef.unflatten(grads), eta_fn(count))
+        else:
+            update, new_memory, _ = sparse_sync_gradients(
+                sync, memory, treedef.unflatten(grads), eta_fn(count),
+                col_axes)
         del grads
         with torch.no_grad():
-            for p, u in zip(leaves, plan.treedef.flatten_up_to(update)):
+            for p, u in zip(leaves, treedef.flatten_up_to(update)):
                 p.sub_(u.to(p.dtype))
         out = {"loss": metrics["xent"].detach(),
                "aux": metrics["aux"].detach()}
         return params, new_memory, opt, count + 1, out
 
-    step.sync, step.plan = sync, plan
+    step.sync, step.plan, step.col_axes = sync, plan, col_axes
     return step
 
 
@@ -140,8 +169,9 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
     step = make_train_step(model, tc)
     tel_owned = telemetry is None
     tel = telemetry if telemetry is not None else Telemetry()
-    tel.set_bytes_per_step(
-        {"total": bucketed_message_bytes(step.sync, step.plan)})
+    tel.set_bytes_per_step({"total": (
+        bucketed_message_bytes(step.sync, step.plan) if step.plan is not None
+        else message_bytes(step.sync, model.param_shapes(), step.col_axes))})
     history = []
 
     # one-step-late loss readback: float(loss) blocks until the step that
@@ -182,7 +212,7 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
 def main(argv=None):
     """CLI: train an architecture's SMOKE variant end to end.
 
-        python -m repro_torch.launch.train --bucketed [--platform cpu]
+        python -m repro_torch.launch.train [--bucketed] [--platform cpu]
     """
     from repro_torch.configs import ARCH_IDS, get_smoke_config
     from repro_torch.data import DeviceBatcher, token_batches
@@ -197,7 +227,7 @@ def main(argv=None):
     ap.add_argument("--strategy", default="sparse_allgather")
     ap.add_argument("--bucketed", action="store_true",
                     help="flat-buffer bucketed sync (repro_torch.core."
-                         "buckets); the per-leaf path is not ported")
+                         "buckets); without it, the per-leaf sync")
     ap.add_argument("--wire", default="unpacked",
                     choices=("unpacked", "packed"),
                     help="sync wire format ('packed' is not ported)")

@@ -1,14 +1,32 @@
-"""Device selection for the port's entry points.
+"""Device selection and per-device tables for the port's entry points.
 
 The port runs on CUDA unless the caller asks for the CPU: the entry
 points default to ``"cuda"``, and with no GPU present they raise instead
 of running somewhere else. ``"cpu"`` runs every kernel's plain version.
+
+``topk_loop_cutover(device)`` is the k up to which the loop top-k
+(k rounds of a row max) beats the threshold select (a fixed ~35 passes
+over the row), per device type; ``kernels.ops.row_topk(method="auto")``
+and the per-leaf sync's ``threshold_onehot`` selection read it.
 """
 from __future__ import annotations
 
 import torch
 
 PLATFORMS = ("cuda", "cpu")
+
+# Largest k at which the loop select still beats the threshold select.
+# "cpu" is the reference's entry (src/repro/utils/platform.py, measured
+# there on its interpret-mode CPU kernels; on the CPU both methods run the
+# same plain version, so it only keeps "auto" resolving as the reference
+# does). "cuda" is the loop-against-threshold sweep that chip_smoke.py
+# prints: on an NVIDIA H100 80GB HBM3 at 700 W the loop kernel wins at
+# every swept k up to 14 and loses from 16 on, at C = 2560 and at
+# C = 1024 (PERF.md).
+TOPK_LOOP_CUTOVER = {
+    "cpu": 4,
+    "cuda": 14,
+}
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -21,3 +39,11 @@ def resolve_device(device="cuda") -> torch.device:
             "(--platform cpu) to run the plain versions on the CPU"
         )
     return dev
+
+
+def topk_loop_cutover(device="cpu") -> int:
+    """The loop-against-threshold top-k cutover for ``device``'s type."""
+    dev = torch.device(device)
+    if dev.type not in TOPK_LOOP_CUTOVER:
+        raise ValueError(f"no top-k cutover for device {dev}")
+    return TOPK_LOOP_CUTOVER[dev.type]

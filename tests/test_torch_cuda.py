@@ -16,8 +16,14 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.distributed import SyncConfig
 from repro_torch.data import token_batches
+from repro_torch.kernels import ops
 from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
-from repro_torch.kernels.ref import fused_memsgd_ref
+from repro_torch.kernels.ref import fused_memsgd_ref, row_topk_ref
+from repro_torch.kernels.topk_select import (
+    LAUNCHES,
+    row_topk_loop_cuda,
+    row_topk_threshold_cuda,
+)
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.train import (
     TrainConfig,
@@ -74,27 +80,62 @@ def test_kernel_rejects_bfloat16_on_the_card():
         fused_memsgd_cuda(m, m, 0.1, 4)
 
 
-def test_train_step_on_the_card_matches_the_cpu():
-    """One float32 smoke step from the same params and batch: loss to
-    1e-5 relative, applied update to 1e-3 relative L2."""
+@pytest.mark.parametrize("selection", ["loop", "threshold"])
+@pytest.mark.parametrize("shape,k,kind", [
+    ((8, 2560), 26, "normal"),
+    ((16, 256), 8, "ties"),
+    ((8, 96), 8, "zeros"),
+    ((5, 77), 77, "normal"),    # k = C, C not a multiple of 4
+    ((3, 60000), 9, "normal"),  # a row wider than shared memory
+])
+def test_topk_kernels_are_bitwise_equal_to_the_plain_version(
+        shape, k, kind, selection):
     _need_card()
+    x, _ = _inputs(shape, 3, kind)
+    name = f"row_topk_{selection}"
+    wrapper = {"loop": row_topk_loop_cuda,
+               "threshold": row_topk_threshold_cuda}[selection]
+    before = LAUNCHES[name]
+    got = wrapper(x, k)
+    assert LAUNCHES[name] == before + 1
+    want = row_topk_ref(x, k)
+    for out in (got, ops.row_topk(x, k, method=selection)):
+        for a, b in zip(out, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_topk_kernels_reject_bfloat16_on_the_card():
+    _need_card()
+    x = torch.zeros((8, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16"):
+        row_topk_loop_cuda(x, 4)
+    with pytest.raises(TypeError, match="bf16"):
+        row_topk_threshold_cuda(x, 4)
+
+
+def _card_against_cpu(bucketed):
+    """One float32 smoke step from the same params and batch on the CPU
+    and on the card: loss to 1e-5 relative, applied update to 1e-3
+    relative L2. Returns the kernel launches of each device's step."""
     model = build_model(get_smoke_config("qwen3-4b").replace(
         compute_dtype="float32"))
-    tc = TrainConfig(eta=0.5, sync=SyncConfig(ratio=0.01, bucketed=True))
+    tc = TrainConfig(eta=0.5, sync=SyncConfig(ratio=0.01, bucketed=bucketed))
     batch = next(token_batches(512, 4, 64, seed=1))
     host = model.init(seed=0, device="cpu")
-    out = {}
+    out, launched = {}, {}
     for dev in ("cpu", "cuda"):
         params, memory, opt, count = init_train_state(
             model, tc, device=dev,
             params=tree_map(lambda t: t.to(dev, copy=True), host))
         before = [p.clone() for p in tree_leaves(params)]
         step = make_train_step(model, tc)
-        launches = fused_memsgd_cuda.launches
+        fused, topk = fused_memsgd_cuda.launches, dict(LAUNCHES)
         params, memory, opt, count, met = step(
             params, memory, opt, count,
             {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
-        assert fused_memsgd_cuda.launches - launches == (dev == "cuda")
+        launched[dev] = {"fused_memsgd": fused_memsgd_cuda.launches - fused,
+                         **{n: LAUNCHES[n] - topk[n] for n in LAUNCHES}}
         out[dev] = (met["loss"], torch.cat(
             [(a - b).reshape(-1).cpu()
              for a, b in zip(before, tree_leaves(params))]))
@@ -102,6 +143,34 @@ def test_train_step_on_the_card_matches_the_cpu():
     l_cpu, l_gpu = float(l_cpu), float(l_gpu)
     assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
     assert float((u_gpu - u_cpu).norm() / u_cpu.norm()) < 1e-3
+    return launched
+
+
+def test_train_step_on_the_card_matches_the_cpu():
+    """The bucketed step: one fused kernel launch on the card."""
+    _need_card()
+    launched = _card_against_cpu(bucketed=True)
+    assert not any(launched["cpu"].values())
+    assert launched["cuda"] == {"fused_memsgd": 1, "row_topk_loop": 0,
+                                "row_topk_threshold": 0}
+
+
+def test_per_leaf_step_on_the_card_matches_the_cpu():
+    _need_card()
+    launched = _card_against_cpu(bucketed=False)
+    assert not any(launched["cpu"].values())
+    # nine sparse leaves, k = 3 each: the loop kernel once per leaf
+    assert launched["cuda"] == {"fused_memsgd": 0, "row_topk_loop": 9,
+                                "row_topk_threshold": 0}
+
+
+def test_cli_trains_the_per_leaf_path_on_the_card():
+    _need_card()
+    launches = LAUNCHES["row_topk_loop"]
+    *_, count, history = train_mod.main(
+        ["--steps", "2", "--batch", "2", "--seq", "32"])
+    assert count == 2 and LAUNCHES["row_topk_loop"] - launches == 18
+    assert all(math.isfinite(x) for _, x in history)
 
 
 def test_cli_trains_on_the_card():

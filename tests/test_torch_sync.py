@@ -135,7 +135,7 @@ def test_message_bytes_match_reference():
     (dict(quant=15), "quant"),
     (dict(local_steps=4), "local_steps"),
     (dict(overlap=True), "overlap"),
-    (dict(bucketed=False), "bucketed=False"),
+    (dict(bucketed=False, wire="packed"), "packed"),  # the per-leaf path
 ])
 def test_unported_options_raise_by_name(change, name):
     cfg = dataclasses.replace(SyncConfig(bucketed=True), **change)

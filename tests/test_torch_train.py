@@ -1,8 +1,9 @@
 """The port's train step and driver against ``repro.launch.train``.
 
-One bucketed Mem-SGD step of the qwen3-4b smoke config in float32
-compute, from the reference's init, on the reference's 1-device mesh (the
-``tests/test_system.py`` pattern) and in the port on the CPU. Tolerances:
+One Mem-SGD step of the qwen3-4b smoke config in float32 compute, on the
+bucketed and on the per-leaf path, from the reference's init, on the
+reference's 1-device mesh (the ``tests/test_system.py`` pattern) and in the
+port on the CPU. Tolerances:
 loss within rtol 1e-5; the applied update (params before minus after)
 within relative L2 error 1e-3 — gradients differ in the last bits between
 the frameworks, which can flip a rare near-tie in |g| (the sync test holds
@@ -51,15 +52,18 @@ def _rel_l2(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def test_one_step_matches_reference():
+def _one_step_both(bucketed):
+    """One memsgd step of the smoke config in float32 compute, in the
+    reference (jitted shard_map step on a 1x1 (data, model) mesh) and in
+    the port on the CPU, from the same params and batch. Returns the
+    port's and the reference's (loss, applied update, memory)."""
     cfg_kw = dict(compute_dtype="float32")
     batch_np = next(token_batches(512, 4, 64, seed=1))
 
-    # reference: jitted shard_map step on a 1x1 (data, model) mesh
     mesh = make_mesh((1, 1), ("data", "model"))
     rmodel = ref_build_model(ref_get_smoke_config(ARCH).replace(**cfg_kw))
     rtc = RefTrainConfig(optimizer="memsgd", eta=0.5,
-                         sync=RefSyncConfig(ratio=0.01, bucketed=True))
+                         sync=RefSyncConfig(ratio=0.01, bucketed=bucketed))
     params, memory, opt, count = ref_init_train_state(
         rmodel, mesh, rtc, rng=jax.random.PRNGKey(0))
     params_np = jax.tree.map(np.array, params)  # copied before donation
@@ -69,10 +73,9 @@ def test_one_step_matches_reference():
         jax.device_put(params, pshard), jax.device_put(memory, mshard), opt,
         count, {k: jnp.asarray(v) for k, v in batch_np.items()})
 
-    # port, on the CPU, from the same params and batch
     model = build_model(get_smoke_config(ARCH).replace(**cfg_kw))
     tc = TrainConfig(optimizer="memsgd", eta=0.5,
-                     sync=SyncConfig(ratio=0.01, bucketed=True))
+                     sync=SyncConfig(ratio=0.01, bucketed=bucketed))
     p, m, o, c = init_train_state(model, tc, device="cpu",
                                   params=params_from_jax(params_np))
     port_step = make_train_step(model, tc)
@@ -80,15 +83,26 @@ def test_one_step_matches_reference():
         p, m, o, c, {k: torch.from_numpy(v) for k, v in batch_np.items()})
 
     assert c == int(r_count) == 1
-    np.testing.assert_allclose(float(metrics["loss"]),
-                               float(r_metrics["loss"]), rtol=1e-5)
     before = np.concatenate([x.reshape(-1) for x in jax.tree.leaves(params_np)])
     got = before - np.concatenate([x.numpy().reshape(-1)
                                    for x in tree_leaves(p)])
     want = before - np.concatenate([np.asarray(x).reshape(-1)
                                     for x in jax.tree.leaves(r_params)])
-    assert np.count_nonzero(want) > 0
-    assert _rel_l2(got, want) < 1e-3
+    return ((float(metrics["loss"]), got, m),
+            (float(r_metrics["loss"]), want, r_memory))
+
+
+def _assert_step_agrees(got, want):
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    assert np.count_nonzero(want[1]) > 0
+    assert _rel_l2(got[1], want[1]) < 1e-3
+
+
+def test_one_step_matches_reference():
+    got, want = _one_step_both(bucketed=True)
+    _assert_step_agrees(got, want)
+    m, r_memory = got[2], want[2]
+    model = build_model(get_smoke_config(ARCH))
     kinds = [s.kind for s in make_plan(model.param_shapes()).buckets]
     assert [x.shape for x in memory_to_jax(m)] == [b.shape for b in r_memory]
     for a, b, kind in zip(m, memory_from_jax(r_memory), kinds):
@@ -99,16 +113,43 @@ def test_one_step_matches_reference():
             assert not a.any() and not b.any()
 
 
-def test_main_trains_on_the_cpu():
+def test_per_leaf_step_matches_reference():
+    got, want = _one_step_both(bucketed=False)
+    _assert_step_agrees(got, want)
+    m, r_memory = got[2], want[2]
+    assert [x.shape for x in jax.tree.leaves(memory_to_jax(m))] == \
+        [b.shape for b in jax.tree.leaves(r_memory)]
+    for a, b in zip(tree_leaves(m), tree_leaves(memory_from_jax(r_memory))):
+        a, b = a.numpy(), b.numpy()
+        if a.size >= SyncConfig().dense_below:
+            assert _rel_l2(a, b) < 1e-3
+        else:  # a dense leaf ships all of u: nothing stays
+            assert not a.any() and not b.any()
+
+
+def _main_on_the_cpu(path_args):
     out = io.StringIO()
     with redirect_stdout(out):
         params, memory, opt, count, history = train_mod.main(
-            ["--platform", "cpu", "--bucketed", "--steps", "3", "--batch",
-             "2", "--seq", "32"])
+            ["--platform", "cpu", *path_args, "--steps", "3", "--batch", "2",
+             "--seq", "32"])
     assert count == 3
     assert [i for i, _ in history] == [0, 2]  # logs the first and last
     assert all(math.isfinite(x) for _, x in history)
     assert "step     2" in out.getvalue()
+    return memory
+
+
+def test_main_trains_on_the_cpu():
+    assert isinstance(_main_on_the_cpu(["--bucketed"]), tuple)
+
+
+def test_main_trains_the_per_leaf_path_on_the_cpu():
+    memory = _main_on_the_cpu([])  # no --bucketed: the per-leaf sync
+    assert isinstance(memory, dict)
+    model = build_model(get_smoke_config(ARCH))
+    assert [m.shape for m in tree_leaves(memory)] == \
+        [p.shape for p in tree_leaves(model.param_shapes())]
 
 
 def test_train_feeds_every_loss_to_telemetry():
@@ -140,6 +181,8 @@ def test_cuda_without_a_gpu_raises():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="no GPU"):
         train_mod.main(["--bucketed", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no GPU"):
+        train_mod.main(["--steps", "1"])
     model = build_model(get_smoke_config(ARCH))
     tc = TrainConfig(sync=SyncConfig(bucketed=True))
     with pytest.raises(RuntimeError, match="no GPU"):
@@ -147,7 +190,8 @@ def test_cuda_without_a_gpu_raises():
 
 
 @pytest.mark.parametrize("tc,err", [
-    (TrainConfig(), NotImplementedError),  # the per-leaf path
+    (TrainConfig(sync=SyncConfig(strategy="hierarchical")),
+     NotImplementedError),  # the per-leaf path, two-level sync
     (TrainConfig(optimizer="adam_compressed",
                  sync=SyncConfig(bucketed=True)), NotImplementedError),
     (TrainConfig(optimizer="sgd", sync=SyncConfig(bucketed=True)),
