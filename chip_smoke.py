@@ -12,12 +12,19 @@ Phases, each of which fails the run with a non-zero exit:
 3. Each kernel against its plain PyTorch version on the card, on the
    paths' shapes and on edge cases (tie-heavy, zero-heavy and signed-zero
    rows, eta = 0, k = 1 and k = C, odd widths, unaligned rows, wide rows,
-   rows wider than shared memory): outputs must match bit for bit. Times
-   each kernel, its plain version and one PyTorch library call that
-   computes the same function, with CUDA events, beside the bandwidth
-   bound. Then the cutover sweep: the loop top-k against the threshold
-   top-k at C = 2560 and 1024 over k, and the largest k at which the loop
-   wins.
+   rows wider than shared memory; for the top-k kernels also the edges of
+   their design: k = 32 and 33, a candidate list that overflows, equal
+   lane maxima, C < 32, fewer rows than the persistent grid, subnormal
+   and +-inf rows, mostly-zero rows, one exponent): outputs must match bit
+   for bit. Times each kernel, its plain version and one PyTorch library
+   call that computes the same function, with CUDA events, beside the
+   bandwidth bound, and prints the top-k kernels' launch geometry; times
+   the top-k kernels on the largest leaf's rows as they are (copied to
+   shared memory in bulk) and 4 bytes past alignment (copied by the
+   lanes' plain loads). Then the cutover sweep: the loop top-k against
+   the threshold top-k at C = 2560 and 1024 over k, and the largest k at
+   which the loop wins; and the threshold kernel at k = 64 on rows of one
+   exponent (its top-digit histogram in one bin) against random rows.
 4. The bucketed path: ``train()`` of the bucketed Mem-SGD step on
    qwen3-4b at full width, depth cut to 4 layers, from the port's own
    seeded init (the fused kernel).
@@ -25,7 +32,9 @@ Phases, each of which fails the run with a non-zero exit:
    ``bucketed=False`` on the same model, once with the default selection
    ``argmax_onehot`` (the loop top-k kernel) and once with
    ``topk_scatter`` (the threshold top-k kernel). The two runs' losses
-   must be identical: the contract fixes the selection.
+   must be identical: the contract fixes the selection. After the first
+   run, one more step keeps its own u of the embed and lm_head leaves:
+   both top-k kernels bitwise against the plain version on it, and timed.
    For every path run, every launch count is zeroed just before it and
    read just after; after each path, a few more steps run under
    torch.profiler: wall and device-busy time per step, and the kernels
@@ -65,7 +74,7 @@ PATH_SHAPE, PATH_K = (1154560, 1024), 10  # its sparse bucket, k = 0.01 * 1024
 LEAF_K = 26
 KERNEL_SOURCES = ("fused_memsgd", "topk_select")
 TOPK_KERNELS = ("row_topk_loop", "row_topk_threshold")
-SWEEP_KS = (1, 2, 4, 8, 12, 14, 16, 26, 32, 64)
+SWEEP_KS = (1, 2, 4, 8, 12, 14, 16, 20, 24, 26, 32, 33, 48, 64)
 
 
 def fail(msg: str) -> None:
@@ -314,6 +323,75 @@ def topk_cases(dev, leaf_shapes):
         for k in (LEAF_K, 3):
             yield (f"per-leaf path ({R},{C}) k={k}",
                    randn((R, C), 20 + i) * 0.01, k)
+    for label, x, k in design_edges():
+        yield label, torch.from_numpy(x).to(dev), k
+
+
+def design_edges():
+    """(label, x as float32 numpy, k) at the edges of the top-k kernels'
+    design: the candidate list's bound (k <= 32) and its overflow, the
+    all-zero fast path, the radix digits, the persistent grid's row walk
+    and the copy of unaligned rows. Made from a seed with numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+
+    def signs(shape):
+        return np.where(rng.random(shape) < 0.5, -1.0, 1.0)
+
+    def f32(x):
+        return np.ascontiguousarray(x, dtype=np.float32)
+
+    for k in (32, 33):
+        yield f"k={k} (8,2560)", f32(rng.standard_normal((8, 2560))), k
+    x = rng.standard_normal((4, 2560)) * 0.1
+    for r in range(4):
+        x[r, rng.choice(2560, 2000, replace=False)] = 3.0 * signs(2000)
+    yield "2000 equal magnitudes per row (4,2560) k=26", f32(x), 26
+    # lane l of a warp reads the columns j with (j // 4) % 32 == l: every
+    # entry of lane l above every entry of lane l + 1, so ~2000 entries
+    # pass the lanes' bound and the candidate list overflows
+    lane = (np.arange(2560) // 4) % 32
+    x = ((32 - lane) * 10.0 + rng.random((4, 2560))) * signs((4, 2560))
+    yield "lane-stratified, list overflows (4,2560) k=26", f32(x), 26
+    x = rng.standard_normal((4, 2560)) * 0.1
+    x[:, 4 * np.arange(32)] = 5.0 * signs((4, 32))
+    yield "every lane's maximum equal (4,2560) k=26", f32(x), 26
+    yield "C < 32 (7,20) k=5", f32(rng.standard_normal((7, 20))), 5
+    yield "C = k < 32 (4,3) k=3", f32(rng.standard_normal((4, 3))), 3
+    yield ("R below the grid (5,2560) k=26",
+           f32(rng.standard_normal((5, 2560))), 26)
+    yield ("R past the grid, not a multiple of the block (7925,1024) k=10",
+           f32(rng.standard_normal((7925, 1024))), 10)
+    bits = rng.integers(1, 2**23, (6, 2560), dtype=np.uint32)
+    bits |= (rng.random((6, 2560)) < 0.5).astype(np.uint32) << 31
+    yield "subnormal only (6,2560) k=26", bits.view(np.float32), 26
+    x = rng.standard_normal((6, 2560))
+    x[0, [5, 900, 2559]] = [np.inf, -np.inf, np.inf]
+    x[1, rng.choice(2560, 40, replace=False)] = np.inf * signs(40)
+    yield "rows holding +-inf (6,2560) k=26", f32(x), 26
+    # the embed leaf at the first step, memory still zero: 4 x 512 tokens
+    # touch at most 2048 of its 152064 rows (1.3%), the rest of u is zero
+    # (later the memory keeps every row it has seen nonzero)
+    x = np.zeros((1000, 2560))
+    x[:, ::7] = -0.0
+    x[rng.choice(1000, 13, replace=False)] = \
+        rng.standard_normal((13, 2560)) * 0.01
+    yield "embed mix, 13 of 1000 rows nonzero (1000,2560) k=26", f32(x), 26
+    x = (1.0 + rng.random((8, 2560))) * signs((8, 2560))
+    for k in (26, 64):
+        yield f"one exponent, [1, 2) (8,2560) k={k}", f32(x), k
+
+
+def plan_text(name: str, rows: int, cols: int) -> str:
+    """A top-k kernel's launch geometry for an (rows, cols) input."""
+    from repro_torch.kernels.topk_select import launch_geometry
+
+    g = launch_geometry(name, rows, cols, torch.device("cuda", 0))
+    form = "one row buffer per warp" if g.in_smem else "device-memory form"
+    return (f"{name} {g.blocks} blocks x {g.warps_per_block} warps, {form}, "
+            f"{g.smem_bytes} B shared memory per block, {g.warps_per_sm} "
+            f"warps per SM")
 
 
 def topk_wrappers() -> dict:
@@ -376,9 +454,27 @@ def phase_topk(dev, leaf_shapes) -> list:
         nops += n * R * C  # one magnitude compare per element
         print(f"  top-k ({R},{C}) k={LEAF_K} x{n} per step: "
               f"{', '.join(line)}, plain {plain_ms:.4f} ms, library "
-              f"{library_ms:.4f} ms")
+              f"{library_ms:.4f} ms; "
+              f"{'; '.join(plan_text(name, R, C) for name in fns)}")
         del x
         torch.cuda.empty_cache()
+    # the rows' copy into shared memory: 16-byte aligned rows come by bulk
+    # copy, the same rows 4 bytes past alignment by the lanes' plain loads
+    R, C = max(leaf_shapes)
+    gen.manual_seed(29)
+    flat = torch.randn(R * C + 1, generator=gen, device=dev) * 0.01
+    views = {"aligned": flat[:-1].view(R, C), "offset": flat[1:].view(R, C)}
+    for name, fn in fns.items():
+        got = {}
+        for _ in range(2):  # in turns: aligned, offset, aligned, offset
+            for v, x in views.items():
+                got.setdefault(v, []).append(
+                    cuda_ms(lambda: fn(x, LEAF_K), iters=10, warmup=2))
+        print(f"  {name} ({R},{C}) k={LEAF_K}, rows' copy: "
+              + ", ".join(f"{v} " + " / ".join(f"{t:.4f}" for t in ts)
+                          + " ms" for v, ts in got.items()))
+    del flat, views
+    torch.cuda.empty_cache()
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = nops / F32_FLOPS_PER_S * 1e3
     out = []
@@ -413,10 +509,15 @@ def phase_cutover(dev) -> None:
         R = 40960 * 2560 // C
         gen.manual_seed(C)
         x = torch.randn((R, C), generator=gen, device=dev)
+        print(f"  cutover ({R},{C}): "
+              f"{'; '.join(plan_text(name, R, C) for name in fns)}")
         last, streak = 0, True
         for k in SWEEP_KS:
-            loop = cuda_ms(lambda: fns["row_topk_loop"](x, k), iters=5)
-            thr = cuda_ms(lambda: fns["row_topk_threshold"](x, k), iters=5)
+            # in turns (loop, threshold, threshold, loop): each the mean
+            t = collections.Counter()
+            for name in TOPK_KERNELS + TOPK_KERNELS[::-1]:
+                t[name] += cuda_ms(lambda: fns[name](x, k), iters=10) / 2
+            loop, thr = t["row_topk_loop"], t["row_topk_threshold"]
             streak = streak and loop < thr
             if streak:
                 last = k
@@ -424,6 +525,19 @@ def phase_cutover(dev) -> None:
             print(f"  cutover ({R},{C}) k={k}: loop {loop:.4f} ms, "
                   f"threshold {thr:.4f} ms -> {winner}")
         wins[C] = last
+        if C == 2560:
+            # the threshold kernel's top-digit histogram (k > 32) over rows
+            # whose magnitudes share one exponent: every count lands in
+            # one bin, against random rows' few
+            one = ((1.0 + torch.rand((R, C), generator=gen, device=dev))
+                   * torch.randn((R, C), generator=gen, device=dev).sign())
+            fn = fns["row_topk_threshold"]
+            ms = [cuda_ms(lambda: fn(z, 64), iters=10)
+                  for z in (x, one, one, x)]
+            print(f"  threshold ({R},{C}) k=64, random rows "
+                  f"{ms[0]:.4f} / {ms[3]:.4f} ms, one exponent "
+                  f"{ms[1]:.4f} / {ms[2]:.4f} ms")
+            del one
         del x
         torch.cuda.empty_cache()
     print(f"cutover: the loop wins at every swept k up to {wins} (by C), "
@@ -561,6 +675,8 @@ def phase_leaf(dev, leaf_shapes) -> dict:
         losses[selection], counts, params, memory, batches = run_path(
             label, model, tc, dev, {kernel: STEPS * n_leaves})
         launches[kernel] = counts[kernel]
+        if selection == "argmax_onehot":
+            params, memory = step_u_topk(model, tc, params, memory, batches)
         profile_steps(model, tc, params, memory, batches, dev)
         del params, memory, batches
         torch.cuda.empty_cache()
@@ -568,6 +684,62 @@ def phase_leaf(dev, leaf_shapes) -> dict:
         fail(f"the two selections' losses differ: {losses}")
     print("per-leaf path: the two selections' losses are identical")
     return launches
+
+
+def step_u_topk(model, tc, params, memory, batches):
+    """Both top-k kernels on the per-leaf step's own u: one more step of
+    the run above (launches not counted) hands its (152064, 2560) rows,
+    the embed and lm_head leaves', to the kernel as usual, and a copy of
+    each is kept. On each: both kernels bitwise against the plain version,
+    and their times beside the plain version's (CUDA events). Returns the
+    step's params and memory."""
+    from repro_torch.core import distributed
+    from repro_torch.kernels.ref import row_topk_ref
+    from repro_torch.launch.train import make_train_step
+
+    captured = []
+    row_topk = distributed.row_topk
+
+    def keep(x, k, method="auto"):
+        if tuple(x.shape) == (152064, 2560):
+            captured.append((x.clone(), k))
+        return row_topk(x, k, method=method)
+
+    distributed.row_topk = keep
+    try:
+        params, memory, *_ = make_train_step(model, tc)(
+            params, memory, (), STEPS, next(iter(batches)))
+        torch.cuda.synchronize()
+    finally:
+        distributed.row_topk = row_topk
+    if len(captured) != 2:
+        fail(f"expected the step's two (152064, 2560) top-k inputs, got "
+             f"{len(captured)}")
+    fns = topk_wrappers()
+    total = collections.Counter()
+    for leaf, (x, k) in zip(("embed", "lm_head"), captured):
+        want = row_topk_ref(x, k)
+        zero_rows = int((x.abs().amax(dim=1) == 0).sum())
+        line = []
+        for name, fn in fns.items():
+            got = fn(x, k)
+            torch.cuda.synchronize()
+            if not all(same_bits(a, b) for a, b in zip(got, want)):
+                fail(f"{name} differs from its plain version on the "
+                     f"step's {leaf} u")
+            ms = cuda_ms(lambda: fn(x, k), iters=10, warmup=2)
+            total[name] += ms
+            line.append(f"{name} {ms:.4f} ms")
+        plain_ms = cuda_ms(lambda: row_topk_ref(x, k), iters=2)
+        print(f"  step's own u, {leaf} {tuple(x.shape)} k={k} "
+              f"({zero_rows} all-zero rows): bitwise equal; "
+              f"{', '.join(line)}, plain {plain_ms:.4f} ms")
+        del x, want
+    captured.clear()
+    torch.cuda.empty_cache()
+    print(f"  step's own u, embed + lm_head: "
+          f"{', '.join(f'{n} {t:.4f} ms' for n, t in total.items())}")
+    return params, memory
 
 
 def profile_steps(model, tc, params, memory, batches, dev, n: int = 5) -> None:

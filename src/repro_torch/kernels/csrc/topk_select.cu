@@ -8,8 +8,9 @@
 //                       _topk_tiled_kernel -> _threshold_select) and
 //                       row_topk_pallas(selection="threshold") (body
 //                       _topk_kernel -> _threshold_topk_tile): the exact
-//                       k-th largest magnitude by bisection over its bit
-//                       pattern, then one pass that selects and orders.
+//                       k-th largest magnitude bit pattern by a radix
+//                       select, the ties taken in column order, then the
+//                       selected pairs ordered.
 //
 // For each row of x (R, C) float32 both write the k entries of largest |x|
 // as (vals (R, k) float32, idx (R, k) int32), in decreasing |x|, ties to
@@ -19,19 +20,39 @@
 //
 // Bound: device-memory bandwidth. The function must read x (R * C * 4
 // bytes) and write vals and idx (R * k * 8 bytes); it does about one
-// compare per element. Both kernels read each row from device memory once
-// into shared memory (16-byte loads where the row is aligned) and run every
-// pass of the selection there, so the passes cost shared-memory bandwidth
-// and instructions, not device memory: the loop kernel O(k * C) per row,
-// the threshold kernel about 35 passes of C (31 bisection halvings, a max,
-// a tie count, a tie scan and a compaction) plus O(k^2) to order the k
-// pairs, whatever k is.
+// compare per element. What held the first form of these kernels back was
+// instructions, not bytes: one pass over the row per round (loop, k
+// passes) or per bisection step (threshold, ~35 passes). Now each row
+// takes two passes over its copy in shared memory (topk_common.cuh:
+// loop_row, threshold_row): every lane's largest key, then, for k <= 32,
+// the candidates above the lanes' bound compacted to a per-warp list of
+// at most 256 keys; the k rounds (loop) or the four radix digits, the tie
+// scan and the O(k^2) rank (threshold) run on that list. A row whose
+// magnitudes are all 0 (a vocabulary row no token has touched yet, as in
+// the embedding's u early in training) is answered after the first pass.
+// For k > 32 the loop kernel repeats the two passes per 32 rounds, and
+// the threshold kernel takes the top digit's histogram over the row
+// before it compacts. The selection is bound by the latency of its
+// warp-wide steps (reductions, ballots), so the more warps reside on an
+// SM, the closer the row's bytes come to the bandwidth.
 //
-// Design: one warp per row, up to four rows per block (the TPU kernels'
-// column-tile grid and running candidate merge are not carried over: a row
-// of up to 58112 columns fits in the 227 KB a block may use). A row wider
-// than that is read from device memory on every pass instead (correct,
-// slower). Rows need no padding: a warp past the last row returns.
+// Design: persistent. launch() below sizes the grid to the card: each
+// warp walks rows with a stride of the grid's warps and owns one row
+// buffer in shared memory, followed by its scratch (the candidate list, a
+// 256-bin histogram, an mbarrier). A row is brought in by one asynchronous
+// bulk copy (TMA's one-dimensional form,
+// cp.async.bulk ... mbarrier::complete_tx::bytes) issued by lane 0, so no
+// lane spends registers or instructions on the copy, and the whole row is
+// in flight at once (on the H100 at C = 2560 it beats the lanes' plain
+// loads by ~13%). The bulk copy needs 16-byte aligned addresses and
+// sizes: where C % 4 != 0 or x is not 16-byte aligned, the lanes copy each
+// row with plain loads instead. One buffer per warp, not two: at C = 2560
+// one lets 16 warps reside on an SM and two only 9, and the other warps'
+// selections hide a warp's copy better than its own second buffer (1.5x
+// faster with one). A row wider than a block's shared memory is read from
+// device memory on every pass instead (correct, slower). The warps per
+// block are the fewest that let the most warps reside on an SM, as the
+// occupancy calculator counts them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,93 +61,237 @@
 
 namespace {
 
-constexpr int kMaxRowsPerBlock = 4;
-constexpr size_t kSmemLimit = 232448;  // 227 KB, the most a block may use
-constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kMaxWarpsPerBlock = 8;
+// a warp's scratch after its row buffer: the candidate list (64-bit
+// keys), the radix histogram, the mbarrier (padded so that the next
+// warp's row buffer stays 16-byte aligned)
+constexpr size_t kListBytes = topk::kListCap * 8;
+constexpr size_t kHistBytes = topk::kHistBins * 4;
+constexpr size_t kWarpScratch = kListBytes + kHistBytes + 16;
+static_assert(kWarpScratch % 16 == 0, "row buffers stay 16-byte aligned");
 
-// The row the warp selects from: its copy in shared memory (kSmem), read
-// once from device memory, or the row in device memory itself.
-template <bool kSmem>
-__device__ __forceinline__ const float* stage_row(const float* __restrict__ x,
-                                                  size_t base, int cols,
-                                                  bool vec, float* smem_row,
-                                                  int lane) {
-  if (!kSmem) return x + base;
-  if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(x + base);
-    float4* s4 = reinterpret_cast<float4*>(smem_row);
-    for (int j = lane; j < (cols >> 2); j += 32) s4[j] = x4[j];
-  } else {
-    for (int j = lane; j < cols; j += 32) smem_row[j] = x[base + j];
-  }
-  __syncwarp();
-  return smem_row;
+// A row buffer's size: the row's bytes rounded up to 16.
+__host__ __device__ __forceinline__ size_t row_stride(int cols) {
+  return (static_cast<size_t>(cols) * sizeof(float) + 15) & ~size_t{15};
 }
 
-template <bool kSmem>
-__global__ void row_topk_loop_kernel(const float* __restrict__ x, int rows,
-                                     int cols, int k, bool vec, float* vals,
-                                     int* idx) {
-  extern __shared__ __align__(16) float smem[];
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Lane 0 copies `bytes` from src to dst; bar completes when they landed.
+// The proxy fence orders the warp's earlier reads of dst (made visible by
+// the caller's __syncwarp) before the asynchronous copy overwrites it.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Every lane waits until bar's phase `parity` has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Walks this warp's rows (the global warp index, then every grid's worth
+// of warps further) and calls select(r, row, list, hist) on each: r is the
+// row's copy in the warp's buffer (kSmem) or the row in device memory.
+// With `bulk` the copy of the warp's next row is issued as soon as the
+// current one's selection has let go of the buffer.
+template <bool kSmem, class Select>
+__device__ __forceinline__ void walk_rows(const float* __restrict__ x,
+                                          int rows, int cols, bool bulk,
+                                          Select&& select) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (row >= rows) return;
-  const float* r =
-      stage_row<kSmem>(x, static_cast<size_t>(row) * cols, cols, vec,
-                       smem + static_cast<size_t>(warp) * cols, lane);
-  const size_t out = static_cast<size_t>(row) * k;
-  topk::loop_select(r, cols, k, lane, vals + out, idx + out);
+  const int warps = blockDim.x >> 5;
+  const size_t stride = kSmem ? row_stride(cols) : 0;
+  unsigned char* own = smem + warp * (stride + kWarpScratch);
+  float* buf = reinterpret_cast<float*>(own);
+  auto* list = reinterpret_cast<unsigned long long*>(own + stride);
+  auto* hist = reinterpret_cast<unsigned int*>(own + stride + kListBytes);
+  auto* bar = reinterpret_cast<uint64_t*>(own + stride + kListBytes +
+                                          kHistBytes);
+  const long long first = static_cast<long long>(blockIdx.x) * warps + warp;
+  const long long step = static_cast<long long>(gridDim.x) * warps;
+  const uint32_t bytes = static_cast<uint32_t>(cols) * 4u;
+  if (kSmem && bulk) {
+    if (lane == 0) {
+      bar_init(bar);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      if (first < rows) bulk_load(buf, x + first * cols, bytes, bar);
+    }
+    __syncwarp();
+  }
+  uint32_t parity = 0;
+  for (long long row = first; row < rows; row += step) {
+    const float* r = x + row * cols;
+    if (kSmem) {
+      if (bulk) {
+        bar_wait(bar, parity);
+        parity ^= 1u;
+      } else {
+        for (int j = lane; j < cols; j += 32) buf[j] = r[j];
+        __syncwarp();
+      }
+      r = buf;
+    }
+    select(r, row, list, hist);
+    if (kSmem) {
+      __syncwarp();  // every lane is done with the buffer
+      if (bulk && lane == 0 && row + step < rows) {
+        bulk_load(buf, x + (row + step) * cols, bytes, bar);
+      }
+    }
+  }
+}
+
+// `bulk`: every row is 16-byte aligned (C % 4 == 0 and x aligned), so a
+// row comes by bulk copy (kSmem) or by 16-byte loads (device form).
+template <bool kSmem>
+__global__ void row_topk_loop_kernel(const float* __restrict__ x, int rows,
+                                     int cols, int k, bool bulk, float* vals,
+                                     int* idx) {
+  const int lane = threadIdx.x & 31;
+  const bool vec = kSmem || bulk;
+  walk_rows<kSmem>(x, rows, cols, bulk,
+                   [&](const float* r, long long row,
+                       unsigned long long* list, unsigned int*) {
+                     const size_t out = static_cast<size_t>(row) * k;
+                     topk::loop_row(r, cols, k, vec, lane, list, vals + out,
+                                    idx + out);
+                   });
 }
 
 template <bool kSmem>
 __global__ void row_topk_threshold_kernel(const float* __restrict__ x,
-                                          int rows, int cols, int k, bool vec,
-                                          float* vals, int* idx) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x >> 5;
+                                          int rows, int cols, int k,
+                                          bool bulk, float* vals, int* idx) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (row >= rows) return;
-  const float* r =
-      stage_row<kSmem>(x, static_cast<size_t>(row) * cols, cols, vec,
-                       smem + static_cast<size_t>(warp) * cols, lane);
-  const unsigned int tau = topk::kth_largest_bits(r, cols, k, lane);
-  const unsigned long long kth = topk::threshold_key(r, cols, k, tau, lane);
-  const size_t out = static_cast<size_t>(row) * k;
-  topk::write_selected(r, cols, k, kth, lane, vals + out, idx + out);
+  const bool vec = kSmem || bulk;
+  walk_rows<kSmem>(x, rows, cols, bulk,
+                   [&](const float* r, long long row,
+                       unsigned long long* list, unsigned int* hist) {
+                     const size_t out = static_cast<size_t>(row) * k;
+                     topk::threshold_row(r, cols, k, vec, lane, list, hist,
+                                         vals + out, idx + out);
+                   });
 }
 
 using KernelFn = void (*)(const float*, int, int, int, bool, float*, int*);
 
-// Picks the shared-memory or device-memory form, lifts the 48 KB default
-// when needed, and launches on `stream`. Returns 0 (cudaSuccess) or the
-// CUDA error code of the refused launch; it does not synchronise.
+// How a kernel is launched on an (rows, cols) input on the current device.
+struct Plan {
+  KernelFn fn;
+  int warps_per_block, in_smem, blocks, smem_bytes, warps_per_sm;
+};
+
+// The row buffer in shared memory if a warp's buffer and scratch fit what
+// one block may use, else the device-memory form; the fewest warps per
+// block (up to kMaxWarpsPerBlock) that let the most warps reside on an
+// SM, as cudaOccupancyMaxActiveBlocksPerMultiprocessor counts them (shared
+// memory, registers, the SM's block and warp limits); enough blocks for
+// every row to have its warp, at most what the SMs hold at once.
+cudaError_t make_plan(KernelFn in_smem, KernelFn in_device, int rows,
+                      int cols, Plan* p) {
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return e;
+  const size_t whole = row_stride(cols) + kWarpScratch;
+  p->in_smem = whole <= static_cast<size_t>(optin);
+  p->fn = p->in_smem ? in_smem : in_device;
+  const size_t per_warp = p->in_smem ? whole : kWarpScratch;
+  e = cudaFuncSetAttribute(p->fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           optin);
+  if (e != cudaSuccess) return e;
+  int best = 0, best_warps = 0, best_blocks = 0;
+  for (int w = 1; w <= kMaxWarpsPerBlock; ++w) {
+    const size_t smem = w * per_warp;
+    if (smem > static_cast<size_t>(optin)) break;
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p->fn, 32 * w,
+                                                      smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm * w > best) {
+      best = per_sm * w;
+      best_warps = w;
+      best_blocks = per_sm;
+    }
+  }
+  if (best == 0) return cudaErrorInvalidConfiguration;
+  p->warps_per_block = best_warps;
+  p->smem_bytes = static_cast<int>(best_warps * per_warp);
+  p->warps_per_sm = best;
+  const long long want = (static_cast<long long>(rows) + best_warps - 1) /
+                         best_warps;
+  const long long most = static_cast<long long>(sms) * best_blocks;
+  p->blocks = static_cast<int>(want < most ? want : most);
+  return cudaSuccess;
+}
+
+// Plans and launches on `stream`. Returns 0 (cudaSuccess) or the CUDA
+// error code of the refused launch; it does not synchronise.
 int launch(KernelFn in_smem, KernelFn in_device, const float* x, int rows,
            int cols, int k, float* vals, int* idx, cudaStream_t stream) {
   if (rows <= 0) return cudaSuccess;
   if (cols <= 0 || k < 1 || k > cols) return cudaErrorInvalidValue;
-  const size_t row_bytes = static_cast<size_t>(cols) * sizeof(float);
-  const bool fits = row_bytes <= kSmemLimit;
-  int rows_per_block = kMaxRowsPerBlock;
-  while (fits && rows_per_block * row_bytes > kSmemLimit) {
-    rows_per_block >>= 1;
-  }
-  const size_t smem = fits ? rows_per_block * row_bytes : 0;
-  KernelFn fn = fits ? in_smem : in_device;
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const bool vec =
+  Plan p;
+  const cudaError_t e = make_plan(in_smem, in_device, rows, cols, &p);
+  if (e != cudaSuccess) return e;
+  const bool bulk =
       (cols & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const unsigned int blocks = static_cast<unsigned int>(
-      (static_cast<long long>(rows) + rows_per_block - 1) / rows_per_block);
-  fn<<<blocks, 32 * rows_per_block, smem, stream>>>(x, rows, cols, k, vec,
-                                                    vals, idx);
+  p.fn<<<p.blocks, 32 * p.warps_per_block, p.smem_bytes, stream>>>(
+      x, rows, cols, k, bulk, vals, idx);
   return cudaGetLastError();
+}
+
+// Writes the plan of a kernel for an (rows, cols) input on the current
+// device into out: warps per block, 1 for the row buffer in shared memory
+// (0: the device-memory form), blocks, shared-memory bytes per block,
+// warps resident per SM.
+int plan_of(KernelFn in_smem, KernelFn in_device, int rows, int cols,
+            int* out) {
+  if (rows <= 0 || cols <= 0) return cudaErrorInvalidValue;
+  Plan p;
+  const cudaError_t e = make_plan(in_smem, in_device, rows, cols, &p);
+  if (e != cudaSuccess) return e;
+  out[0] = p.warps_per_block;
+  out[1] = p.in_smem;
+  out[2] = p.blocks;
+  out[3] = p.smem_bytes;
+  out[4] = p.warps_per_sm;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -143,4 +308,14 @@ extern "C" int row_topk_threshold_f32(const float* x, int rows, int cols,
   return launch(row_topk_threshold_kernel<true>,
                 row_topk_threshold_kernel<false>, x, rows, cols, k, vals, idx,
                 stream);
+}
+
+// The launch plan of either kernel (the loop's when threshold == 0) for an
+// (rows, cols) input on the current device: see plan_of.
+extern "C" int row_topk_plan(int threshold, int rows, int cols, int* out) {
+  return threshold ? plan_of(row_topk_threshold_kernel<true>,
+                             row_topk_threshold_kernel<false>, rows, cols,
+                             out)
+                   : plan_of(row_topk_loop_kernel<true>,
+                             row_topk_loop_kernel<false>, rows, cols, out);
 }

@@ -4,8 +4,8 @@
 ``method`` keeps the reference's names and validation:
 
 * ``"loop"``      — k rounds of a row max (``row_topk_loop``).
-* ``"threshold"`` — the exact bit-pattern bisection select
-  (``row_topk_threshold``), a fixed number of passes whatever k is.
+* ``"threshold"`` — the exact k-th largest magnitude by a radix select
+  of its bit pattern (``row_topk_threshold``).
 * ``"auto"``      — threshold for k above the device's measured cutover
   (``repro_torch.utils.platform.topk_loop_cutover``), loop otherwise.
 

@@ -3,12 +3,14 @@
 Ports of the Pallas TPU kernels of ``src/repro/kernels/topk_select.py``:
 
 * ``row_topk_loop_cuda(x, k)`` launches ``row_topk_loop`` (k rounds of
-  a warp-wide key max): ``row_topk_pallas(selection="loop")``.
+  a warp-wide key max, over a short candidate list where one exists):
+  ``row_topk_pallas(selection="loop")``.
 * ``row_topk_threshold_cuda(x, k)`` launches ``row_topk_threshold``
-  (exact bit-pattern bisection, then one select-and-order pass):
+  (the exact k-th largest magnitude by a radix select of four 8-bit
+  digits, then the ties in column order and one ordering step):
   ``row_topk_tiled_pallas`` and ``row_topk_pallas(selection="threshold")``.
-  The kernel reads a whole row per pass, so the TPU kernels' row and
-  column tiles have no counterpart.
+  Both kernels read a row that fits shared memory from device memory
+  once, so the TPU kernels' row and column tiles have no counterpart.
 
 Both return (vals (R, k) x.dtype, idx (R, k) int32): per row the k entries
 of largest |x|, in decreasing |x|, ties to the lowest column. They route on
@@ -17,11 +19,17 @@ where ``x`` lies: a CPU tensor goes to the plain version
 raises. The kernels take float32 only (the bf16 variants are not ported).
 ``LAUNCHES`` counts each kernel's launches (plain integers; set them to 0
 to count one run).
+
+The kernels are persistent; ``csrc/topk_select.cu`` plans each launch
+(warps per block, the row buffer in shared memory or the device-memory
+form, the grid) from the card's limits, and ``launch_geometry`` reports
+that plan.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -36,17 +44,49 @@ MAX_ROWS = 2**31 - 1
 LAUNCHES = {"row_topk_loop": 0, "row_topk_threshold": 0}
 
 
+@dataclass(frozen=True)
+class Geometry:
+    """How a top-k kernel is launched: ``warps_per_block`` warps (one row
+    each at a time) per block, ``blocks`` blocks, ``smem_bytes`` dynamic
+    shared memory per block, ``warps_per_sm`` warps resident per SM;
+    ``in_smem``: each warp copies its row into a shared-memory buffer
+    (else it reads the row from device memory on every pass)."""
+    warps_per_block: int
+    in_smem: bool
+    blocks: int
+    smem_bytes: int
+    warps_per_sm: int
+
+
 @functools.cache
 def _kernels():
     lib = _build.load("topk_select")
-    p = ctypes.c_void_p
+    p, i = ctypes.c_void_p, ctypes.c_int
     fns = {}
     for name in LAUNCHES:
         fn = getattr(lib, f"{name}_f32")
-        fn.argtypes = [p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p]
+        fn.argtypes = [p, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
         fns[name] = fn
+    lib.row_topk_plan.argtypes = [i, i, i, p]
+    lib.row_topk_plan.restype = ctypes.c_int
+    fns["plan"] = lib.row_topk_plan
     return fns
+
+
+def launch_geometry(name: str, rows: int, cols: int,
+                    device: torch.device) -> Geometry:
+    """The plan with which kernel ``name`` (a key of ``LAUNCHES``) would
+    launch on an (rows, cols) float32 input on a CUDA ``device``."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        rc = _kernels()["plan"](int(name == "row_topk_threshold"), rows,
+                                cols, out)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch plan failed: CUDA error {rc}")
+    w, in_smem, blocks, smem, per_sm = out
+    return Geometry(warps_per_block=w, in_smem=bool(in_smem), blocks=blocks,
+                    smem_bytes=smem, warps_per_sm=per_sm)
 
 
 def check_shape(x: torch.Tensor, k: int) -> None:

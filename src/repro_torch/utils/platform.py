@@ -5,8 +5,9 @@ points default to ``"cuda"``, and with no GPU present they raise instead
 of running somewhere else. ``"cpu"`` runs every kernel's plain version.
 
 ``topk_loop_cutover(device)`` is the k up to which the loop top-k
-(k rounds of a row max) beats the threshold select (a fixed ~35 passes
-over the row), per device type; ``kernels.ops.row_topk(method="auto")``
+(k rounds of a warp max over a row's candidates) beats the threshold
+select (a radix select of the k-th largest magnitude over the same
+candidates), per device type; ``kernels.ops.row_topk(method="auto")``
 and the per-leaf sync's ``threshold_onehot`` selection read it.
 """
 from __future__ import annotations
@@ -20,12 +21,15 @@ PLATFORMS = ("cuda", "cpu")
 # there on its interpret-mode CPU kernels; on the CPU both methods run the
 # same plain version, so it only keeps "auto" resolving as the reference
 # does). "cuda" is the loop-against-threshold sweep that chip_smoke.py
-# prints: on an NVIDIA H100 80GB HBM3 at 700 W the loop kernel wins at
-# every swept k up to 14 and loses from 16 on, at C = 2560 and at
-# C = 1024 (PERF.md).
+# prints for the kernels of csrc/topk_select.cu (two passes over the row,
+# then the rounds or the radix digits on a candidate list): on an NVIDIA
+# H100 80GB HBM3 at 700 W the loop kernel wins at every swept k up to 16
+# at C = 2560 and up to 12 at C = 1024, where the threshold kernel already
+# wins at 14, by a few percent or less either side (PERF.md). Both
+# kernels' times grow slowly with k, so the choice moves little time.
 TOPK_LOOP_CUTOVER = {
     "cpu": 4,
-    "cuda": 14,
+    "cuda": 12,
 }
 
 

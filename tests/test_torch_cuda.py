@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from _topk_edges import EDGE_KINDS, edge_rows
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.distributed import SyncConfig
 from repro_torch.data import token_batches
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, topk_select
 from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
 from repro_torch.kernels.ref import fused_memsgd_ref, row_topk_ref
 from repro_torch.kernels.topk_select import (
@@ -103,6 +104,53 @@ def test_topk_kernels_are_bitwise_equal_to_the_plain_version(
         for a, b in zip(out, want):
             assert a.dtype == b.dtype and a.shape == b.shape
             assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("selection", ["loop", "threshold"])
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_topk_kernels_on_the_design_edges(kind, selection):
+    _need_card()
+    x, k = edge_rows(kind)
+    x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).cuda()
+    wrapper = {"loop": row_topk_loop_cuda,
+               "threshold": row_topk_threshold_cuda}[selection]
+    got, want = wrapper(x, k), row_topk_ref(x, k)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_topk_kernels_on_unaligned_rows():
+    _need_card()
+    flat = torch.from_numpy(
+        np.random.default_rng(4).standard_normal(8 * 1024 + 1)
+        .astype(np.float32)).cuda()
+    x = flat[1:].view(8, 1024)  # contiguous, 4 bytes past 16-byte alignment
+    want = row_topk_ref(x, 26)
+    for wrapper in (row_topk_loop_cuda, row_topk_threshold_cuda):
+        for a, b in zip(wrapper(x, 26), want):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("cols,in_smem", [
+    (1, True), (20, True), (1023, True), (2560, True), (20000, True),
+    (60000, False), (1 << 20, False)])
+def test_topk_launch_plan_fits_the_card(cols, in_smem):
+    _need_card()
+    dev = torch.device("cuda", 0)
+    props = torch.cuda.get_device_properties(dev)
+    for name in LAUNCHES:
+        for rows in (1, 5, 152064):
+            g = topk_select.launch_geometry(name, rows, cols, dev)
+            # never more shared memory than a block may use; a row buffer
+            # per warp when a row fits, else the device-memory form
+            assert 0 < g.smem_bytes <= props.shared_memory_per_block_optin
+            assert g.in_smem == in_smem
+            assert 1 <= g.warps_per_block <= g.warps_per_sm
+            assert g.warps_per_sm * 32 <= props.max_threads_per_multi_processor
+            # every row has its warp, or the SMs hold every block at once
+            per_sm = g.warps_per_sm // g.warps_per_block
+            assert g.blocks == min(-(-rows // g.warps_per_block),
+                                   props.multi_processor_count * per_sm)
 
 
 def test_topk_kernels_reject_bfloat16_on_the_card():
