@@ -25,9 +25,22 @@ Phases, each of which fails the run with a non-zero exit:
    the threshold top-k at C = 2560 and 1024 over k, and the largest k at
    which the loop wins; and the threshold kernel at k = 64 on rows of one
    exponent (its top-digit histogram in one bin) against random rows.
+   The fused kernel's threshold branch: bitwise against the plain version
+   on the fused kernel's cases above (each also at k = 20 where its k is
+   at or below the cutover) and on the branch's own edges (k = 13, 20,
+   32, 33, 256, 257 and C; all-zero and signed-zero rows; ties; eta = 0;
+   C % 4 != 0; unaligned rows; the widest row it holds); both branches
+   timed at the bucket's shape at the topk preset's k = 20 and the
+   bucketed path's k = 10, beside the plain version, the library call and
+   the bound; and the fused sweep, loop against threshold branch at
+   C = 1024 over k.
 4. The bucketed path: ``train()`` of the bucketed Mem-SGD step on
    qwen3-4b at full width, depth cut to 4 layers, from the port's own
-   seeded init (the fused kernel).
+   seeded init (the fused kernel's loop branch, k = 10). Then the topk
+   preset path (``SyncConfig.preset("topk", ratio=0.02)``: the packed
+   wire, the fused kernel's threshold branch at k = 20) in a 1-rank NCCL
+   process group, whose gather runs through NCCL: its bytes per step, and
+   the same run with the unpacked wire giving identical losses.
 5. The per-leaf path (the train CLI's default): ``train()`` with
    ``bucketed=False`` on the same model, once with the default selection
    ``argmax_onehot`` (the loop top-k kernel) and once with
@@ -41,7 +54,7 @@ Phases, each of which fails the run with a non-zero exit:
    that take the most device time.
 6. A small input: one train step of the qwen3-4b smoke config in float32
    on the card and on the CPU (the plain versions) must agree, on the
-   bucketed and on the per-leaf path.
+   bucketed path, the topk preset and the per-leaf path.
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
 then the result line ``{"ok": true, "device": {...}}`` last.
@@ -72,6 +85,10 @@ RATIO, ETA = 0.01, 0.5
 PATH_SHAPE, PATH_K = (1154560, 1024), 10  # its sparse bucket, k = 0.01 * 1024
 # the per-leaf path selects k = round(0.01 * 2560) = 26 per 2560-wide row
 LEAF_K = 26
+# the topk preset path: the same bucket at k = round(0.02 * 1024) = 20,
+# the fused kernel's threshold branch; its bytes per step on the packed
+# wire (the reference's bucketed_message_bytes)
+TOPK_RATIO, TOPK_K, TOPK_BYTES = 0.02, 20, 124_788_768
 KERNEL_SOURCES = ("fused_memsgd", "topk_select")
 TOPK_KERNELS = ("row_topk_loop", "row_topk_threshold")
 SWEEP_KS = (1, 2, 4, 8, 12, 14, 16, 20, 24, 26, 32, 33, 48, 64)
@@ -118,19 +135,25 @@ def phase_build() -> None:
 
 
 def launch_counts() -> dict:
-    from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
+    """Every kernel's launches: the fused kernel's per branch
+    ("fused_memsgd" is its loop branch), and the two top-k kernels'."""
+    from repro_torch.kernels.fused_memsgd import SELECTION_LAUNCHES
     from repro_torch.kernels.topk_select import LAUNCHES
 
-    return {"fused_memsgd": fused_memsgd_cuda.launches, **LAUNCHES}
+    return {"fused_memsgd": SELECTION_LAUNCHES["loop"],
+            "fused_memsgd_threshold": SELECTION_LAUNCHES["threshold"],
+            **LAUNCHES}
 
 
 def zero_launch_counts() -> None:
-    from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
+    from repro_torch.kernels.fused_memsgd import (SELECTION_LAUNCHES,
+                                                  fused_memsgd_cuda)
     from repro_torch.kernels.topk_select import LAUNCHES
 
     fused_memsgd_cuda.launches = 0
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (SELECTION_LAUNCHES, LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -247,6 +270,154 @@ def phase_kernel(dev) -> dict:
           f"{max(byte_ms, op_ms):.4f} ms ({nbytes} bytes)")
     return {
         "name": "fused_memsgd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_memsgd.cu",
+        "replaces": "src/repro/kernels/fused_memsgd.py:61",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+        "library_ms": library_ms, "ok": True,
+    }
+
+
+def fused_edges():
+    """(label, m, g as float32 numpy, eta, k) at the edges of the fused
+    kernel's threshold branch, made with numpy from a seed: k around the
+    candidate list's bound (32) and capacity (256), k = C, all-zero and
+    signed-zero rows, ties, eta = 0, C % 4 != 0, the widest row the
+    branch holds (its row and scratch fill a block's shared memory)."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+
+    def f32(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    for k in (13, 20, 32, 33, 256, 257):
+        yield f"k={k} (8,1024)", f32(8, 1024), f32(8, 1024), 0.37, k
+    yield "k=C (4,300) k=300", f32(4, 300), f32(4, 300), 0.37, 300
+    z = np.zeros((6, 256), np.float32)
+    z[:, 1::3] = -0.0
+    yield "all-zero rows, signed zeros (6,256) k=20", z, z.copy(), 0.5, 20
+    m = np.zeros((6, 256), np.float32)
+    m[:, ::5] = -0.0
+    m[:3, 7], m[:3, 200] = 2.0, -1.0
+    yield ("mostly signed zeros (6,256) k=20", m, np.zeros_like(m), 1.0,
+           20)
+    yield ("tie-heavy halves (16,512) k=40", np.round(f32(16, 512) * 2) / 2,
+           np.round(f32(16, 512) * 2) / 2, 1.0, 40)
+    yield ("tie-heavy small integers (8,1024) k=20",
+           rng.integers(-3, 4, (8, 1024)).astype(np.float32),
+           np.zeros((8, 1024), np.float32), 1.0, 20)
+    yield "eta=0 (8,1024) k=20", f32(8, 1024), f32(8, 1024), 0.0, 20
+    yield "C % 4 != 0 (6,1023) k=26", f32(6, 1023), f32(6, 1023), 0.37, 26
+    yield ("widest row (2,57344) k=300", f32(2, 57344), f32(2, 57344),
+           0.37, 300)
+
+
+def fused_threshold_cases(dev):
+    """Yields (label, m, g, eta, k) on the card for the threshold branch:
+    the fused kernel's cases (each also at k = 20 where its k is at or below
+    the cutover), the unaligned rows, and the branch's edges."""
+    from repro_torch.utils.platform import topk_loop_cutover
+
+    cut = topk_loop_cutover("cuda")
+    for label, m, g, eta, k in kernel_cases(dev):
+        yield label, m, g, eta, k
+        C = m.shape[1]
+        if k <= cut and C > cut:
+            yield (label.replace(f"k={k}", f"k={min(C, TOPK_K)}"), m, g, eta,
+                   min(C, TOPK_K))
+    for label, m, g, eta, k in fused_edges():
+        yield label, torch.from_numpy(m).to(dev), torch.from_numpy(g).to(
+            dev), eta, k
+
+
+def phase_fused_threshold(dev) -> dict:
+    """The fused kernel's threshold branch bitwise against the plain
+    version, then both branches timed at the bucket's shape (k = 10 and
+    the topk preset's k = 20, whose figures the returned entry keeps)
+    beside the plain version, the library call and the bound, then the
+    fused sweep (loop against threshold branch at C = 1024 over k)."""
+    from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
+    from repro_torch.kernels.ref import fused_memsgd_ref
+    from repro_torch.utils.platform import topk_loop_cutover
+
+    worst = 0.0
+    bad = []
+    n = 0
+    for label, m, g, eta, k in fused_threshold_cases(dev):
+        got = fused_memsgd_cuda(m, g, eta, k, "threshold")
+        want = fused_memsgd_ref(m, g, eta, k)
+        del m, g
+        torch.cuda.synchronize()
+        ok = all(same_bits(a, b) for a, b in zip(got, want))
+        err = max(float((a - b).abs().max()) if a.numel() else 0.0
+                  for a, b in zip(got[:2], want[:2]))
+        worst = max(worst, err)
+        n += 1
+        print(f"  fused_memsgd threshold {label}: "
+              f"{'bitwise equal' if ok else 'MISMATCH'} (max |err| {err:g})")
+        if not ok:
+            bad.append(label)
+        del got, want
+    if bad:
+        fail(f"fused_memsgd's threshold branch differs from its plain "
+             f"version on {bad}")
+    print(f"  fused_memsgd threshold branch: {n} cases bitwise equal")
+    torch.cuda.empty_cache()
+
+    # both branches at the bucket's shape, in turns: at the topk preset's
+    # k = 20 (the branch's entry below) and at the bucketed path's k = 10
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    m = torch.randn(PATH_SHAPE, generator=gen, device=dev) * 0.01
+    gen.manual_seed(14)
+    g = torch.randn(PATH_SHAPE, generator=gen, device=dev)
+    R, C = PATH_SHAPE
+    for k in (PATH_K, TOPK_K):
+        t = collections.defaultdict(list)
+        for sel in ("threshold", "loop", "loop", "threshold"):
+            t[sel].append(cuda_ms(
+                lambda: fused_memsgd_cuda(m, g, ETA, k, sel), iters=10,
+                warmup=2))
+        plain_ms = cuda_ms(lambda: fused_memsgd_ref(m, g, ETA, k), iters=3)
+        library_ms = cuda_ms(lambda: fused_library(m, g, ETA, k), iters=3)
+        nbytes = 3 * R * C * 4 + R * k * 8
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = 2 * R * C / F32_FLOPS_PER_S * 1e3
+        ms = sum(t["threshold"]) / 2
+        print(f"  fused_memsgd {PATH_SHAPE} k={k}: threshold branch "
+              f"{' / '.join(f'{x:.4f}' for x in t['threshold'])} ms, loop "
+              f"branch {' / '.join(f'{x:.4f}' for x in t['loop'])} ms, "
+              f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+              f"{max(byte_ms, op_ms):.4f} ms ({nbytes} bytes)")
+    del m, g
+    torch.cuda.empty_cache()
+
+    # the fused sweep: loop against threshold branch at C = 1024, in turns
+    Rs = 40960 * 2560 // 1024
+    gen.manual_seed(1024)
+    m = torch.randn((Rs, 1024), generator=gen, device=dev) * 0.01
+    g = torch.randn((Rs, 1024), generator=gen, device=dev)
+    last, streak = 0, True
+    for k in SWEEP_KS:
+        tk = collections.Counter()
+        for sel in ("loop", "threshold", "threshold", "loop"):
+            tk[sel] += cuda_ms(lambda: fused_memsgd_cuda(m, g, ETA, k, sel),
+                               iters=10) / 2
+        streak = streak and tk["loop"] < tk["threshold"]
+        if streak:
+            last = k
+        print(f"  fused sweep ({Rs},1024) k={k}: loop {tk['loop']:.4f} ms, "
+              f"threshold {tk['threshold']:.4f} ms -> "
+              f"{'loop' if tk['loop'] < tk['threshold'] else 'threshold'}")
+    del m, g
+    torch.cuda.empty_cache()
+    print(f"fused sweep: the loop branch wins at every swept k up to {last} "
+          f"at C = 1024; TOPK_LOOP_CUTOVER['cuda'] = "
+          f"{topk_loop_cutover('cuda')}")
+    return {
+        "name": "fused_memsgd_threshold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_memsgd.cu",
         "replaces": "src/repro/kernels/fused_memsgd.py:61",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
@@ -649,6 +820,54 @@ def phase_bucketed(dev) -> int:
     return counts["fused_memsgd"]
 
 
+def phase_topk_preset(dev) -> int:
+    """The topk preset path (the reference's headline configuration) in a
+    1-rank NCCL process group: the packed wire gathered through NCCL, the
+    fused kernel's threshold branch once per step; then the same run on
+    the unpacked wire must give identical losses. Returns the threshold
+    branch's launches in the packed run."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core.buckets import make_plan
+    from repro_torch.core.distributed import SyncConfig, bucketed_message_bytes
+    from repro_torch.launch.train import TrainConfig
+
+    model = full_model()
+    plan = make_plan(model.param_shapes())
+    losses, launches = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1)
+        try:
+            for wire in ("packed", "unpacked"):
+                sync = SyncConfig.preset("topk", ratio=TOPK_RATIO, wire=wire)
+                nbytes = bucketed_message_bytes(sync, plan)
+                print(f"topk preset path, {wire} wire: {ARCH} {N_LAYERS} "
+                      f"layers, 1-rank {dist.get_backend()} group, k="
+                      f"{sync.k_for(sync.bucket_cols)}, {nbytes} B/step")
+                if wire == "packed" and nbytes != TOPK_BYTES:
+                    fail(f"topk preset: {nbytes} B/step, expected "
+                         f"{TOPK_BYTES}")
+                tc = TrainConfig(optimizer="memsgd", eta=ETA, sync=sync)
+                losses[wire], counts, params, memory, batches = run_path(
+                    f"topk preset path, {wire} wire", model, tc, dev,
+                    {"fused_memsgd_threshold": STEPS})
+                if wire == "packed":
+                    launches = counts["fused_memsgd_threshold"]
+                    profile_steps(model, tc, params, memory, batches, dev)
+                del params, memory, batches
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    if losses["packed"] != losses["unpacked"]:
+        fail(f"the packed and unpacked wires' losses differ: {losses}")
+    print("topk preset path: the packed and unpacked wires' losses are "
+          "identical")
+    return launches
+
+
 def phase_leaf(dev, leaf_shapes) -> dict:
     """The per-leaf path with each selection; returns each top-k kernel's
     launches in its run."""
@@ -781,7 +1000,8 @@ def profile_steps(model, tc, params, memory, batches, dev, n: int = 5) -> None:
 def phase_small(dev) -> None:
     """One float32 step of the smoke config on the card and on the CPU
     (plain versions) from the same params and batch must agree, on the
-    bucketed and on the per-leaf path: loss to 1e-5 relative, the applied
+    bucketed path, the topk preset (the threshold branch, packed wire) and
+    the per-leaf path: loss to 1e-5 relative, the applied
     update to 1e-3 relative L2 (matrix products sum in another order on
     the card, which can flip a rare near-tie in the selection)."""
     from repro_torch.configs import get_smoke_config
@@ -796,9 +1016,11 @@ def phase_small(dev) -> None:
     model = build_model(cfg)
     batch = next(token_batches(cfg.vocab_size, 4, 64, seed=1))
     host = model.init(seed=0, device="cpu")
-    for bucketed in (True, False):
-        tc = TrainConfig(eta=ETA, sync=SyncConfig(ratio=RATIO,
-                                                  bucketed=bucketed))
+    paths = {"bucketed": SyncConfig(ratio=RATIO, bucketed=True),
+             "topk preset": SyncConfig.preset("topk", ratio=TOPK_RATIO),
+             "per-leaf": SyncConfig(ratio=RATIO)}
+    for path, sync in paths.items():
+        tc = TrainConfig(eta=ETA, sync=sync)
         out = {}
         for d in (torch.device("cpu"), dev):
             params, memory, opt, count = init_train_state(
@@ -815,7 +1037,6 @@ def phase_small(dev) -> None:
         (l_cpu, u_cpu), (l_gpu, u_gpu) = out["cpu"], out["cuda"]
         rel_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
         rel_upd = float((u_gpu - u_cpu).norm() / u_cpu.norm())
-        path = "bucketed" if bucketed else "per-leaf"
         print(f"small input, {path} path: loss card {l_gpu} vs cpu {l_cpu} "
               f"(rel {rel_loss:.2e}), update rel L2 {rel_upd:.2e}")
         if rel_loss > 1e-5 or rel_upd > 1e-3:
@@ -828,9 +1049,11 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     leaf_shapes = leaf_row_shapes()
-    kernels = [phase_kernel(dev)] + phase_topk(dev, leaf_shapes)
+    kernels = ([phase_kernel(dev), phase_fused_threshold(dev)]
+               + phase_topk(dev, leaf_shapes))
     phase_cutover(dev)
-    launches = {"fused_memsgd": phase_bucketed(dev)}
+    launches = {"fused_memsgd": phase_bucketed(dev),
+                "fused_memsgd_threshold": phase_topk_preset(dev)}
     launches.update(phase_leaf(dev, leaf_shapes))
     phase_small(dev)
     for k in kernels:

@@ -8,7 +8,8 @@ conversion is a leafwise copy through numpy:
 
 The reference holds each worker's memory behind a leading worker axis:
 (W, rows, cols) per bucket on the bucketed path, (W,) + shape per leaf on
-the per-leaf path. The port runs one worker and drops that axis.
+the per-leaf path. A worker of the port holds only its own memory, so
+these take worker 0's and put back an axis of 1.
 """
 from __future__ import annotations
 

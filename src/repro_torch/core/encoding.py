@@ -1,0 +1,365 @@
+"""Packed sparse wire codec and communication accounting (port of
+``repro.core.encoding``, its codec half).
+
+1. **Accounting** (python ints/floats): bits per step per scheme, the
+   paper's formulas (§4.2, §4.3, Appendix B), and ``message_nbytes``,
+   the exact bytes one sparse (rows, cols, k) message puts on the wire.
+
+2. **Codec** (``WireSpec`` + ``encode``/``decode``): k (value, index)
+   pairs per row of an (rows, cols) buffer, bit-packed into one flat
+   uint32 buffer::
+
+       [ header : HEADER_WORDS words ]
+       [ values : rows * value_words words  (f32 bitcast | bf16 pairs) ]
+       [ packed_indices : rows * index_words words
+                          (row-local indices, ceil(log2 cols) bits each,
+                           LSB-first within each 32-bit word) ]
+
+   Header words: [magic, version, rows, cols, n_sel, dtype, kind,
+   live_n]; ``live_n`` (word ``LIVE_N_WORD``) is the one dynamic field,
+   0 meaning "all n_sel slots live". The bytes equal the reference's
+   ``encode`` output for the same pairs, and ``decode(encode(v, i))``
+   returns ``i`` and ``v`` (in the wire value dtype) bit for bit.
+
+Torch has no uint32 shifts or gathers on the CPU, so the fields are
+packed in int64 and the buffer is viewed as uint32 only at its edge;
+collectives take its int32 view (``buf.view(torch.int32)``).
+
+Not ported: the quantized value tier (``WireSpec(quant=)`` and
+``message_nbytes(quant=)`` raise ``NotImplementedError``;
+``dequantize_rows`` and ``decode_quant`` are absent), and
+``repack``/``repad``/``repack_spec``, ``transcode`` and the snapshot codec
+(absent; ROADMAP lists them).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional, Tuple
+
+import torch
+
+MAGIC = 0x53505257  # "SPRW"
+VERSION = 1
+HEADER_WORDS = 8
+# header slot carrying the runtime live entry count of a k-padded message
+# (0 = every n_sel slot is live)
+LIVE_N_WORD = 7
+_DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+_DTYPE_NAMES = {v: k for k, v in _DTYPE_CODES.items()}
+_KIND_CODES = {"sparse": 0, "dense": 1}
+_KIND_NAMES = {v: k for k, v in _KIND_CODES.items()}
+_WORD = 1 << 32
+
+
+def _unported(name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name} is not ported to the PyTorch port yet (the codec half of "
+        "repro.core.encoding is: accounting, WireSpec, encode/decode)")
+
+
+# ---------------------------------------------------------------------------
+# accounting (paper Appendix B + exact packed-wire byte counts)
+# ---------------------------------------------------------------------------
+
+
+def dense_bits(d: int, bits_per_value: int = 32) -> float:
+    return float(bits_per_value * d)
+
+
+def index_bits(d: int) -> int:
+    """Bits to address one of d positions (>= 1)."""
+    return max(1, math.ceil(math.log2(max(2, d))))
+
+
+def value_bits(value_dtype: str) -> int:
+    """Wire bits per value for a sync value dtype (f32: 32, bf16: 16)."""
+    return getattr(torch, value_dtype).itemsize * 8
+
+
+def sparse_bits(d: int, k: float, bits_per_value: int = 32) -> float:
+    """k (value, index) pairs against a d-long address space."""
+    return k * (bits_per_value + index_bits(d))
+
+
+def qsgd_bits(d: int, s: int) -> float:
+    """Paper Appendix B formula for s quantization levels."""
+    naive = (math.log2(s) + 1.0) * d
+    elias = 3.0 * s * (s + math.sqrt(d)) + 32.0
+    return min(naive, elias)
+
+
+def quant_code_bits(s: int) -> int:
+    """Wire bits per quantized value: a sign bit plus a level in [0, s]."""
+    if s < 1:
+        raise ValueError(f"quantization levels must be >= 1, got {s}")
+    return 1 + max(1, math.ceil(math.log2(s + 1)))
+
+
+def memsgd_message_bits(d: int, k: int, value_dtype="float32") -> float:
+    """Bits per worker per step for the distributed sparse all-gather."""
+    return sparse_bits(d, k, value_bits(value_dtype))
+
+
+def reduction_factor(d: int, k: float, bits_per_value: int = 32) -> float:
+    """Communication reduction vs dense SGD (the paper's d/k gain)."""
+    return dense_bits(d, bits_per_value) / sparse_bits(d, k, bits_per_value)
+
+
+def message_nbytes(rows: int, cols: int, k: int, value_dtype="float32",
+                   wire: str = "unpacked", quant: Optional[int] = None) -> int:
+    """Exact bytes one sparse (rows, cols, k) message puts on the wire: the
+    packed ``WireSpec`` buffer's size, or the unpacked (value_dtype values,
+    int32 indices) pair arrays."""
+    if quant is not None:
+        raise _unported("the quantized wire tier (quant=)")
+    if wire == "packed":
+        return WireSpec(rows, cols, k, value_dtype).nbytes
+    return rows * k * (value_bits(value_dtype) // 8 + 4)
+
+
+# ---------------------------------------------------------------------------
+# packed wire codec
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class WireSpec:
+    """Static layout of one packed wire message.
+
+    ``kind="sparse"``: k (value, row-local index) pairs per row.
+    ``kind="dense"``: all cols values per row, no index section; ``k`` is
+    ignored. ``quant`` (the quantized tier) is not ported."""
+
+    rows: int
+    cols: int
+    k: int
+    value_dtype: str = "float32"
+    kind: str = "sparse"
+    quant: Optional[int] = None
+
+    def __post_init__(self):
+        if self.value_dtype not in _DTYPE_CODES:
+            raise ValueError(
+                f"unsupported wire value dtype {self.value_dtype!r}")
+        if self.kind not in _KIND_CODES:
+            raise ValueError(f"unknown wire kind {self.kind!r}")
+        if self.kind == "sparse" and not 1 <= self.k <= self.cols:
+            raise ValueError(f"k={self.k} out of range for cols={self.cols}")
+        if self.quant is not None:
+            raise _unported("the quantized wire tier (WireSpec quant=)")
+
+    @property
+    def n_sel(self) -> int:
+        """Entries per row on the wire (k, or cols for dense messages)."""
+        return self.cols if self.kind == "dense" else self.k
+
+    @property
+    def index_bits(self) -> int:
+        return 0 if self.kind == "dense" else index_bits(self.cols)
+
+    @property
+    def value_bits(self) -> int:
+        return value_bits(self.value_dtype)
+
+    @property
+    def value_words(self) -> int:
+        """uint32 words per row for the value section."""
+        return -(-(self.n_sel * self.value_bits) // 32)
+
+    @property
+    def index_words(self) -> int:
+        """uint32 words per row for the packed index section."""
+        return -(-(self.n_sel * self.index_bits) // 32)
+
+    @property
+    def words(self) -> int:
+        return HEADER_WORDS + self.rows * (self.value_words + self.index_words)
+
+    @property
+    def nbytes(self) -> int:
+        """Exact bytes of the encoded buffer."""
+        return 4 * self.words
+
+    @property
+    def nbits(self) -> int:
+        return 32 * self.words
+
+    def header(self, live_n: int = 0, device="cpu") -> torch.Tensor:
+        """The HEADER_WORDS header words (uint32)."""
+        return _as_words(torch.tensor(
+            [MAGIC, VERSION, self.rows, self.cols, self.n_sel,
+             _DTYPE_CODES[self.value_dtype], _KIND_CODES[self.kind],
+             int(live_n)], dtype=torch.int64, device=device))
+
+    @classmethod
+    def from_header(cls, buf) -> "WireSpec":
+        """The spec of a received buffer, from its header words (a host
+        read)."""
+        h = _host_header(buf)
+        if h[0] != MAGIC or h[1] != VERSION:
+            raise ValueError(
+                f"bad wire header magic/version {h[0]:#x}/{h[1]}")
+        if h[5] >> 8:
+            raise _unported("the quantized wire tier (a quant header)")
+        return cls(rows=h[2], cols=h[3], k=h[4],
+                   value_dtype=_DTYPE_NAMES[h[5] & 0xFF],
+                   kind=_KIND_NAMES[h[6]])
+
+
+@functools.lru_cache(maxsize=64)
+def _header_on(spec: WireSpec, live_n: int, device: torch.device
+               ) -> torch.Tensor:
+    """``spec``'s header on ``device``, made once: copying it there anew on
+    every step would make the host wait for the card."""
+    return spec.header(live_n, device)
+
+
+def _as_words(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> the same bits as uint32."""
+    return torch.where(x >= (1 << 31), x - _WORD, x).to(
+        torch.int32).view(torch.uint32)
+
+
+def _as_int64(words: torch.Tensor) -> torch.Tensor:
+    """uint32 (or int32) words -> int64 values in [0, 2**32)."""
+    if words.dtype == torch.uint32:
+        words = words.view(torch.int32)
+    return words.to(torch.int64) & (_WORD - 1)
+
+
+def _host_header(buf) -> list:
+    """The header words of a buffer as python ints (a host read)."""
+    return [int(w) for w in _as_int64(torch.as_tensor(buf[:HEADER_WORDS])
+                                      .cpu())]
+
+
+def _field_layout(n: int, nbits: int, device):
+    """For n fields of nbits bits, LSB-first: each field's word, its bit
+    offset in that word, and whether it spills into the next word."""
+    pos = torch.arange(n, dtype=torch.int64, device=device) * nbits
+    word, off = pos // 32, pos % 32
+    return word, off, off + nbits > 32
+
+
+def _pack_bits(ints: torch.Tensor, nbits: int, words: int) -> torch.Tensor:
+    """(R, n) non-negative ints (< 2**nbits) -> (R, words) uint32, an
+    LSB-first bit stream of nbits-wide fields. Fields do not overlap, so
+    adding their shifted parts into their words is the OR of them."""
+    rows, n = ints.shape
+    v = ints.to(torch.int64)
+    word, off, spill = _field_layout(n, nbits, v.device)
+    out = torch.zeros((rows, words + 1), dtype=torch.int64, device=v.device)
+    out.scatter_add_(1, word.expand(rows, n),
+                     (v << off) & (_WORD - 1))
+    out.scatter_add_(1, (word + 1).expand(rows, n),
+                     torch.where(spill, v >> (32 - off), 0))
+    return _as_words(out[:, :words])
+
+
+def _unpack_bits(packed: torch.Tensor, nbits: int, n: int) -> torch.Tensor:
+    """(R, words) uint32 -> (R, n) int64, inverse of ``_pack_bits``."""
+    p = _as_int64(packed)
+    p = torch.cat([p, torch.zeros_like(p[:, :1])], dim=1)
+    word, off, spill = _field_layout(n, nbits, p.device)
+    lo = p[:, word] >> off
+    # a field that does not spill shifts its next word by 32 - off <= 32
+    # (< 2**64, discarded)
+    hi = torch.where(spill, p[:, word + 1] << (32 - off).clamp(max=31), 0)
+    return (lo | hi) & ((1 << nbits) - 1)
+
+
+def _pack_values(spec: WireSpec, vals: torch.Tensor) -> torch.Tensor:
+    """(R, n_sel) values -> (R, value_words) uint32 (bitcast; bf16 packs
+    two values per word, low half first)."""
+    v = vals.to(getattr(torch, spec.value_dtype))
+    if spec.value_dtype == "float32":
+        return v.contiguous().view(torch.int32).view(torch.uint32)
+    u16 = v.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
+    pad = 2 * spec.value_words - spec.n_sel
+    if pad:
+        u16 = torch.nn.functional.pad(u16, (0, pad))
+    pairs = u16.view(vals.shape[0], spec.value_words, 2)
+    return _as_words(pairs[..., 0] | (pairs[..., 1] << 16))
+
+
+def _unpack_values(spec: WireSpec, packed: torch.Tensor) -> torch.Tensor:
+    """(R, value_words) uint32 -> (R, n_sel) values in the wire dtype."""
+    if spec.value_dtype == "float32":
+        return packed.view(torch.int32).view(torch.float32)
+    w = _as_int64(packed)
+    u16 = torch.stack([w & 0xFFFF, w >> 16], dim=-1).reshape(
+        packed.shape[0], -1)[:, :spec.n_sel]
+    u16 = torch.where(u16 >= (1 << 15), u16 - (1 << 16), u16)
+    return u16.to(torch.int16).view(torch.bfloat16)
+
+
+def encode(spec: WireSpec, vals: torch.Tensor,
+           idx: Optional[torch.Tensor] = None, live_n: Optional[int] = None,
+           norms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(values (rows, n_sel), indices (rows, k)) -> flat uint32 wire buffer
+    of exactly ``spec.words`` words, on the values' device. For
+    ``kind="dense"`` pass the (rows, cols) values only. ``live_n`` stamps
+    the live entry count into header word ``LIVE_N_WORD``."""
+    if tuple(vals.shape) != (spec.rows, spec.n_sel):
+        raise ValueError(
+            f"values shape {tuple(vals.shape)} != {(spec.rows, spec.n_sel)}")
+    if norms is not None:
+        raise _unported("norms (the quantized wire tier)")
+    sections = [_header_on(spec, int(live_n or 0), vals.device),
+                _pack_values(spec, vals).reshape(-1)]
+    if spec.kind == "sparse":
+        if idx is None:
+            raise ValueError("sparse wire message needs indices")
+        if tuple(idx.shape) != (spec.rows, spec.k):
+            raise ValueError(
+                f"index shape {tuple(idx.shape)} != {(spec.rows, spec.k)}")
+        sections.append(
+            _pack_bits(idx, spec.index_bits, spec.index_words).reshape(-1))
+    return torch.cat(sections)
+
+
+def decode(spec: WireSpec, buf: torch.Tensor
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Inverse of ``encode``: wire buffer (uint32 or its int32 view) ->
+    (values (rows, n_sel) in the wire dtype, indices (rows, k) int32, or
+    None for dense messages).
+
+    A buffer on the CPU has its dynamic header word checked: a live_n
+    above the n_sel laid-out slots raises. A buffer on the card skips the
+    check, as the reference's traced decode does: reading a word back
+    would make the host wait for the step."""
+    if tuple(buf.shape) != (spec.words,):
+        raise ValueError(f"buffer shape {tuple(buf.shape)} != {(spec.words,)}")
+    buf = buf.view(torch.uint32) if buf.dtype == torch.int32 else buf
+    if buf.device.type == "cpu":
+        ln = _host_header(buf)[LIVE_N_WORD]
+        if ln > spec.n_sel:
+            raise ValueError(
+                f"corrupt wire header: live_n={ln} exceeds the "
+                f"{spec.n_sel} laid-out slots per row")
+    off = HEADER_WORDS
+    nv = spec.rows * spec.value_words
+    vals = _unpack_values(spec, buf[off:off + nv].reshape(
+        spec.rows, spec.value_words))
+    if spec.kind == "dense":
+        return vals, None
+    ni = spec.rows * spec.index_words
+    packed_idx = buf[off + nv:off + nv + ni].reshape(
+        spec.rows, spec.index_words)
+    idx = _unpack_bits(packed_idx, spec.index_bits, spec.k)
+    return vals, idx.to(torch.int32)
+
+
+def live_n_of(buf) -> Optional[int]:
+    """The live entry count of a received buffer (a host read), or None
+    when word ``LIVE_N_WORD`` is 0 (every n_sel slot live). Raises when
+    it exceeds the header's own n_sel."""
+    h = _host_header(buf)
+    n, n_sel = h[LIVE_N_WORD], h[4]
+    if n > n_sel:
+        raise ValueError(
+            f"corrupt wire header: live_n={n} exceeds the {n_sel} "
+            f"laid-out slots per row")
+    return n or None

@@ -1,6 +1,7 @@
 """Input pipeline: bounded consumption and device placement (port of
-``repro.data.pipeline``; ``DeviceBatcher`` takes the place of the mesh's
-``ShardedBatcher`` on one device)."""
+``repro.data.pipeline``): ``DeviceBatcher`` places whole batches on one
+device, ``ShardedBatcher`` gives each data-parallel worker its slice of
+the global batch, as the reference's mesh sharding does."""
 from __future__ import annotations
 
 from typing import Iterator
@@ -66,6 +67,41 @@ class DeviceBatcher:
     def __iter__(self):
         for batch in self._it:
             yield {k: self._put(v) for k, v in batch.items()}
+
+
+class ShardedBatcher(DeviceBatcher):
+    """Each worker's share of a global batch stream: rank w of W takes the
+    contiguous rows [w * B/W, (w+1) * B/W) of every array's leading
+    (batch) axis, on its own ``device`` (the reference's ``ShardedBatcher``
+    places the same slice on worker w's device). ``rank`` and ``world``
+    default to the torch.distributed group's, else 0 and 1."""
+
+    def __init__(self, it: Iterator[dict], device, rank=None, world=None):
+        super().__init__(it, device)
+        initialised = (torch.distributed.is_available()
+                       and torch.distributed.is_initialized())
+        if world is None:
+            world = torch.distributed.get_world_size() if initialised else 1
+        if rank is None:
+            rank = torch.distributed.get_rank() if initialised else 0
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside a world of {world}")
+        self.rank, self.world = rank, world
+
+    def _shard(self, v):
+        v = np.asarray(v)
+        if v.ndim == 0:
+            return v
+        if v.shape[0] % self.world:
+            raise ValueError(
+                f"global batch {v.shape[0]} does not divide over "
+                f"{self.world} workers")
+        n = v.shape[0] // self.world
+        return v[self.rank * n:(self.rank + 1) * n]
+
+    def __iter__(self):
+        for batch in self._it:
+            yield {k: self._put(self._shard(v)) for k, v in batch.items()}
 
 
 def take(it: Iterator, n: int):

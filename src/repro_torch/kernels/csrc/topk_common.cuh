@@ -12,10 +12,10 @@
 // memory), and agree on every result through warp intrinsics. A row
 // pointer may point into shared or device memory.
 //
-// fused_memsgd.cu uses mag_bits, sel_key, warp_max and loop_select (k
-// rounds over the whole row). topk_select.cu uses loop_row and
-// threshold_row below, which read the row in two passes and then work on
-// a short candidate list:
+// fused_memsgd.cu uses sel_key with loop_select (k rounds over the whole
+// row) or threshold_row. topk_select.cu uses loop_row and threshold_row
+// below, which read the row in two passes and then work on a short
+// candidate list:
 //   1. every lane's largest key; if the row's largest magnitude is 0 the
 //      answer is columns 0..k-1 (every entry ties), written at once;
 //   2. for k <= 32, the k-th largest of the 32 lanes' largest keys is a
@@ -610,15 +610,16 @@ __device__ __forceinline__ void loop_row(const float* r, int cols, int k,
 //     row), then one pass compacts the k selected keys to the list.
 // k > kListCap orders the k pairs through (vals, idx) in device memory
 // (write_selected), as the list cannot hold them.
-__device__ __forceinline__ void threshold_row(const float* r, int cols,
-                                              int k, bool vec, int lane,
-                                              unsigned long long* list,
-                                              unsigned int* hist,
-                                              float* vals, int* idx) {
+// Returns the k-th selected key (the same in every lane): the selection is
+// exactly the row's keys >= it, as loop_select's last winner is. For an
+// all-zero row that is column k-1's key at magnitude 0.
+__device__ __forceinline__ unsigned long long threshold_row(
+    const float* r, int cols, int k, bool vec, int lane,
+    unsigned long long* list, unsigned int* hist, float* vals, int* idx) {
   const unsigned long long mine = lane_max_key(r, cols, vec, lane);
   if (all_zero(mine)) {
     write_leading(r, k, lane, vals, idx);
-    return;
+    return static_cast<unsigned int>(~(k - 1));
   }
   Radix st = {0u, 0u, k, 0};
   int n = 0;
@@ -642,7 +643,7 @@ __device__ __forceinline__ void threshold_row(const float* r, int cols,
       keep_list(list, n, kth, lane);
       write_ranked(list, k, r, lane, vals, idx);
       __syncwarp();
-      return;
+      return kth;
     }
   }
   auto visit_row = [&](auto&& f) {
@@ -680,6 +681,7 @@ __device__ __forceinline__ void threshold_row(const float* r, int cols,
   } else {
     write_selected(r, cols, k, kth, lane, vals, idx);
   }
+  return kth;
 }
 
 }  // namespace topk

@@ -11,10 +11,9 @@
 
 Every method gives the same contract (decreasing |v|, ties to the lowest
 index), so all of them return bitwise-identical outputs. On CPU tensors
-every method runs the plain version (``ref.row_topk_ref``). The fused
-Mem-SGD kernel has only the loop select (its threshold branch is later
-work), so ``fused_memsgd_update`` validates ``method`` and runs the loop
-whatever it names.
+every method runs the plain version (``ref.row_topk_ref`` /
+``ref.fused_memsgd_ref``). ``fused_memsgd_update`` resolves ``method`` as
+``row_topk`` does and runs the fused kernel's branch of that name.
 """
 from __future__ import annotations
 
@@ -68,10 +67,10 @@ def fused_memsgd_update(
     and masks the ragged edge itself, so no padding is needed and the
     value does not change the result.
     """
-    _resolve_method(method, k, m.device)
+    selection = _resolve_method(method, k, m.device)
     if row_block < 1:
         raise ValueError(f"row_block must be >= 1, got {row_block}")
-    return fused_memsgd_cuda(m, g, eta, k)
+    return fused_memsgd_cuda(m, g, eta, k, selection)
 
 
 # re-exported for tests and for the card's comparison

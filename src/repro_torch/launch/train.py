@@ -1,5 +1,11 @@
-"""Train step + driver for PARALLEL-MEM-SGD on one device (port of
+"""Train step, loop and CLI for PARALLEL-MEM-SGD (port of
 ``repro.launch.train`` for the per-leaf and the bucketed paths).
+
+Data-parallel workers are processes of one ``torch.distributed`` group
+(``torchrun``; NCCL on the card, gloo on the CPU), one device each: each
+holds the full params, its own memory and its slice of the global batch
+(``repro_torch.data.ShardedBatcher``), and the sync gathers the workers'
+pairs. Without a group the CLI runs one worker.
 
 ``make_train_step`` builds the step
 
@@ -21,7 +27,8 @@ subtracts the synced update from the parameters:
 As the reference donates its step inputs, the port updates ``params`` IN
 PLACE and returns them; the old memory is replaced by the sync's output.
 ``count`` is a host integer, so the eta schedule never waits on the
-device.
+device. The step's loss is the mean over the workers (the reference's
+``_mean_metrics``).
 
 Optimizer modes:
   * ``memsgd`` — paper Algorithm 1/2: update = comp_k(m + eta*g),
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -43,8 +51,10 @@ from repro_torch.core.distributed import (
     SyncConfig,
     bucketed_message_bytes,
     bucketed_sync_gradients,
+    distributed,
     message_bytes,
     sparse_sync_gradients,
+    world_size,
 )
 from repro_torch.data.pipeline import take
 from repro_torch.kernels.ref import eta32
@@ -99,9 +109,10 @@ def init_train_state(model, tc: TrainConfig, *, device="cuda", seed: int = 0,
                      params=None):
     """Returns (params, memory, opt, count): the port's seeded init on
     ``device`` (or the given ``params``), zero float32 memory, no optimizer
-    state, count 0. The memory is a param-shaped tree on the per-leaf path
-    and one (rows, cols) buffer per bucket on the bucketed path (the
-    reference's carry a leading worker axis; the port runs one worker)."""
+    state, count 0. The memory is this worker's: a param-shaped tree on
+    the per-leaf path and one (rows, cols) buffer per bucket on the
+    bucketed path (the reference's carry a leading worker axis; in the
+    port each worker's process holds its own)."""
     device = resolve_device(device)
     plan = _bucket_plan(_sync_config(tc), model.param_shapes())
     if params is None:
@@ -112,6 +123,18 @@ def init_train_state(model, tc: TrainConfig, *, device="cuda", seed: int = 0,
         memory = tree_map(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=device), params)
     return params, memory, (), 0
+
+
+def _mean_metrics(metrics):
+    """The step's loss and aux loss, means over the workers (device
+    tensors: the all-reduce is issued, not waited for)."""
+    out = {"loss": metrics["xent"].detach(), "aux": metrics["aux"].detach()}
+    if distributed():
+        vals = torch.stack([out["loss"], out["aux"]]).float()
+        torch.distributed.all_reduce(vals)
+        vals /= world_size()
+        out = {"loss": vals[0], "aux": vals[1]}
+    return out
 
 
 def make_train_step(model, tc: TrainConfig):
@@ -142,9 +165,7 @@ def make_train_step(model, tc: TrainConfig):
         with torch.no_grad():
             for p, u in zip(leaves, treedef.flatten_up_to(update)):
                 p.sub_(u.to(p.dtype))
-        out = {"loss": metrics["xent"].detach(),
-               "aux": metrics["aux"].detach()}
-        return params, new_memory, opt, count + 1, out
+        return params, new_memory, opt, count + 1, _mean_metrics(metrics)
 
     step.sync, step.plan, step.col_axes = sync, plan, col_axes
     return step
@@ -209,13 +230,47 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
     return params, memory, opt, count, history
 
 
+def _sync_from_args(ap, args) -> SyncConfig:
+    """The sync config of the CLI. With ``--preset`` the named
+    ``SyncConfig.preset`` bundle is the base and only flags given
+    explicitly (other than their default) override it, as the reference's
+    ``_sync_from_args`` does."""
+    if args.preset is not None:
+        overrides = {key: getattr(args, key)
+                     for key in ("ratio", "strategy", "wire")
+                     if getattr(args, key) != ap.get_default(key)}
+        if args.bucketed:
+            overrides["bucketed"] = True
+        return SyncConfig.preset(args.preset, **overrides)
+    return SyncConfig(ratio=args.ratio, strategy=args.strategy,
+                      bucketed=args.bucketed, wire=args.wire)
+
+
+def _join_workers(platform: str) -> bool:
+    """Under ``torchrun`` with WORLD_SIZE > 1, joins the workers' process
+    group (NCCL on the card, gloo on the CPU; address, rank and size from
+    torchrun's environment) unless one is initialised already. Returns
+    whether it made the group."""
+    if distributed() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    torch.distributed.init_process_group(
+        "nccl" if platform == "cuda" else "gloo")
+    return True
+
+
 def main(argv=None):
     """CLI: train an architecture's SMOKE variant end to end.
 
-        python -m repro_torch.launch.train [--bucketed] [--platform cpu]
+        python -m repro_torch.launch.train [--preset topk] [--bucketed]
+            [--wire packed] [--platform cpu]
+        torchrun --nproc_per_node 2 -m repro_torch.launch.train \
+            --platform cpu --preset topk --ratio 0.02
+
+    Each worker trains on its slice of the global ``--batch``; only rank
+    0 prints.
     """
     from repro_torch.configs import ARCH_IDS, get_smoke_config
-    from repro_torch.data import DeviceBatcher, token_batches
+    from repro_torch.data import ShardedBatcher, token_batches
     from repro_torch.models import build_model
 
     ap = argparse.ArgumentParser()
@@ -228,27 +283,44 @@ def main(argv=None):
     ap.add_argument("--bucketed", action="store_true",
                     help="flat-buffer bucketed sync (repro_torch.core."
                          "buckets); without it, the per-leaf sync")
+    ap.add_argument("--preset", default=None,
+                    choices=("dense", "topk", "qsparse_local",
+                             "pod_budgeted"),
+                    help="start from a named SyncConfig.preset; other "
+                         "sync flags given EXPLICITLY override its fields "
+                         "(qsparse_local and pod_budgeted are not ported)")
     ap.add_argument("--wire", default="unpacked",
                     choices=("unpacked", "packed"),
-                    help="sync wire format ('packed' is not ported)")
-    ap.add_argument("--batch", type=int, default=8)
+                    help="sync wire format (repro_torch.core.encoding)")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="global batch, split over the workers")
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--platform", default="cuda", choices=("cuda", "cpu"),
                     help="device to train on; 'cpu' runs every kernel's "
                          "plain version")
     args = ap.parse_args(argv)
 
+    sync = _sync_from_args(ap, args)
     device = resolve_device(args.platform)
-    cfg = get_smoke_config(args.arch)
-    model = build_model(cfg)
-    tc = TrainConfig(
-        optimizer=args.optimizer, eta=args.eta,
-        sync=SyncConfig(ratio=args.ratio, strategy=args.strategy,
-                        bucketed=args.bucketed, wire=args.wire),
-    )
-    batches = DeviceBatcher(
-        token_batches(cfg.vocab_size, args.batch, args.seq, seed=0), device)
-    return train(model, tc, batches, n_steps=args.steps, device=device)
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    made = _join_workers(args.platform)
+    try:
+        rank = torch.distributed.get_rank() if distributed() else 0
+        cfg = get_smoke_config(args.arch)
+        model = build_model(cfg)
+        tc = TrainConfig(optimizer=args.optimizer, eta=args.eta, sync=sync)
+        batches = ShardedBatcher(
+            token_batches(cfg.vocab_size, args.batch, args.seq, seed=0),
+            device)
+        tel = Telemetry(printer=print if rank == 0 else lambda line: None)
+        with tel:
+            return train(model, tc, batches, n_steps=args.steps,
+                         device=device, telemetry=tel)
+    finally:
+        if made:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -18,7 +18,10 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.distributed import SyncConfig
 from repro_torch.data import token_batches
 from repro_torch.kernels import ops, topk_select
-from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
+from repro_torch.kernels.fused_memsgd import (
+    SELECTION_LAUNCHES,
+    fused_memsgd_cuda,
+)
 from repro_torch.kernels.ref import fused_memsgd_ref, row_topk_ref
 from repro_torch.kernels.topk_select import (
     LAUNCHES,
@@ -71,6 +74,80 @@ def test_kernel_is_bitwise_equal_to_its_plain_version(shape, k, kind, eta):
     want = fused_memsgd_ref(m, g, eta, k)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def _fused_edges():
+    """(label, m, g, eta, k) at the edges of the fused kernel's threshold
+    branch, made with numpy from a seed: k around the candidate list's
+    bound (32) and capacity (256), k = C, all-zero and signed-zero rows,
+    ties, eta = 0, C % 4 != 0, and the widest row it holds."""
+    rng = np.random.default_rng(21)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa
+    for k in (13, 20, 32, 33, 256, 257):
+        yield f"k={k}", f32(8, 1024), f32(8, 1024), 0.37, k
+    yield "k=C", f32(4, 300), f32(4, 300), 0.37, 300
+    z = np.zeros((6, 256), np.float32)
+    z[:, 1::3] = -0.0
+    yield "all-zero rows, signed zeros", z, z.copy(), 0.5, 20
+    m = np.zeros((6, 256), np.float32)
+    m[:, ::5] = -0.0
+    m[:3, 7], m[:3, 200] = 2.0, -1.0
+    yield "mostly signed zeros", m, np.zeros_like(m), 1.0, 20
+    yield ("tie-heavy halves", np.round(f32(16, 512) * 2) / 2,
+           np.round(f32(16, 512) * 2) / 2, 1.0, 40)
+    yield ("tie-heavy small integers", rng.integers(-3, 4, (8, 1024))
+           .astype(np.float32), np.zeros((8, 1024), np.float32), 1.0, 20)
+    yield "eta=0", f32(8, 1024), f32(8, 1024), 0.0, 20
+    yield "C % 4 != 0", f32(6, 1023), f32(6, 1023), 0.37, 26
+    yield "widest row", f32(2, 57344), f32(2, 57344), 0.37, 300
+
+
+FUSED_EDGES = [e[0] for e in _fused_edges()]
+
+
+@pytest.mark.parametrize("label", FUSED_EDGES)
+def test_fused_threshold_branch_on_its_edges(label):
+    _need_card()
+    _, m, g, eta, k = next(e for e in _fused_edges() if e[0] == label)
+    m, g = torch.from_numpy(m).cuda(), torch.from_numpy(g).cuda()
+    before = dict(SELECTION_LAUNCHES)
+    got = fused_memsgd_cuda(m, g, eta, k, "threshold")
+    assert SELECTION_LAUNCHES == {"loop": before["loop"],
+                                  "threshold": before["threshold"] + 1}
+    want = fused_memsgd_ref(m, g, eta, k)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_fused_threshold_branch_on_unaligned_rows():
+    _need_card()
+    flat = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        2 * (8 * 1024 + 1)).astype(np.float32)).cuda()
+    m, g = flat[1:8 * 1024 + 1].view(8, 1024), flat[-8 * 1024:].view(8, 1024)
+    want = fused_memsgd_ref(m, g, 0.37, 20)
+    for a, b in zip(fused_memsgd_cuda(m, g, 0.37, 20, "threshold"), want):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_fused_threshold_branch_refuses_a_row_over_shared_memory():
+    _need_card()
+    m = torch.zeros((1, 57348), device="cuda")
+    with pytest.raises(ValueError, match="threshold selection"):
+        fused_memsgd_cuda(m, m, 0.1, 20, "threshold")
+    fused_memsgd_cuda(m, m, 0.1, 20, "loop")  # the loop branch holds it
+
+
+@pytest.mark.parametrize("k,branch", [(12, "loop"), (13, "threshold"),
+                                      (20, "threshold")])
+def test_fused_update_picks_the_branch_by_the_cutover(k, branch):
+    _need_card()
+    m, g = _inputs((8, 1024), 5, "normal")
+    before = dict(SELECTION_LAUNCHES)
+    got = ops.fused_memsgd_update(m, g, 0.5, k)
+    assert {n: SELECTION_LAUNCHES[n] - before[n] for n in before} == {
+        "loop": int(branch == "loop"), "threshold": int(branch != "loop")}
+    for a, b in zip(got, fused_memsgd_ref(m, g, 0.5, k)):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
@@ -227,4 +304,48 @@ def test_cli_trains_on_the_card():
     *_, count, history = train_mod.main(
         ["--bucketed", "--steps", "2", "--batch", "2", "--seq", "32"])
     assert count == 2 and fused_memsgd_cuda.launches - launches == 2
+    assert all(math.isfinite(x) for _, x in history)
+
+
+def test_topk_preset_in_a_one_rank_nccl_group(tmp_path):
+    """The topk preset (packed wire, the fused kernel's threshold branch
+    at ratio 0.05) through a 1-rank NCCL group: the same bits as the
+    unpacked wire, and the gather through NCCL."""
+    _need_card()
+    import torch.distributed as dist
+
+    model = build_model(get_smoke_config("qwen3-4b"))
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(token_batches(512, 4, 64, seed=1)).items()}
+    host = model.init(seed=0, device="cpu")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        out = {}
+        for wire in ("packed", "unpacked"):
+            tc = TrainConfig(eta=0.5, sync=SyncConfig.preset(
+                "topk", ratio=0.05, wire=wire))
+            params, memory, opt, count = init_train_state(
+                model, tc, device="cuda",
+                params=tree_map(lambda t: t.to("cuda", copy=True), host))
+            before = dict(SELECTION_LAUNCHES)
+            params, memory, *_ = make_train_step(model, tc)(
+                params, memory, opt, count, batch)
+            torch.cuda.synchronize()
+            assert SELECTION_LAUNCHES["threshold"] - before["threshold"] == 1
+            out[wire] = tree_leaves(params) + list(memory)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(out["packed"], out["unpacked"]):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_cli_trains_the_topk_preset_on_the_card():
+    _need_card()
+    before = dict(SELECTION_LAUNCHES)
+    *_, count, history = train_mod.main(
+        ["--preset", "topk", "--ratio", "0.02", "--steps", "2", "--batch",
+         "2", "--seq", "32"])
+    assert count == 2
+    assert SELECTION_LAUNCHES["threshold"] - before["threshold"] == 2
     assert all(math.isfinite(x) for _, x in history)

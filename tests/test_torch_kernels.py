@@ -18,7 +18,12 @@ import torch
 
 import repro.kernels as ref_kernels
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused_memsgd import check_inputs, fused_memsgd_cuda
+from repro_torch.kernels.fused_memsgd import (
+    MAX_COLS,
+    SELECTION_LAUNCHES,
+    check_inputs,
+    fused_memsgd_cuda,
+)
 from repro_torch.kernels.ref import densify_rows_ref, row_topk_ref
 
 SHAPES = [(8, 64), (16, 128), (8, 1024), (24, 100), (3, 33), (1, 257)]
@@ -145,3 +150,31 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     meta = torch.zeros((4, 32), device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_memsgd_cuda(meta, meta, 0.1, 2)
+
+
+@pytest.mark.parametrize("selection", ["loop", "threshold"])
+def test_both_selections_take_the_plain_version_on_the_cpu(selection):
+    """On CPU tensors either branch runs ``fused_memsgd_ref``, uncounted,
+    bitwise equal to the reference's interpret-mode Pallas kernel of that
+    selection."""
+    m, g = _inputs((8, 64), 7, "ties")
+    before = dict(SELECTION_LAUNCHES)
+    got = fused_memsgd_cuda(torch.from_numpy(m), torch.from_numpy(g), 1.0,
+                            20, selection)
+    assert SELECTION_LAUNCHES == before
+    want = ref_kernels.fused_memsgd_update(
+        jnp.asarray(m), jnp.asarray(g), 1.0, 20, interpret=True,
+        method=selection)
+    _assert_bitwise([t.numpy() for t in got], want)
+
+
+def test_unknown_selection_and_the_threshold_branch_width_raise():
+    m = torch.zeros((4, 32))
+    with pytest.raises(ValueError, match="unknown fused_memsgd selection"):
+        fused_memsgd_cuda(m, m, 0.1, 2, "radix")
+    # the threshold branch's scratch lowers its widest row below the loop's
+    wide = torch.zeros((1, MAX_COLS["threshold"] + 4))
+    check_inputs(wide, wide, 2, "loop")
+    with pytest.raises(ValueError, match="threshold selection"):
+        check_inputs(wide, wide, 2, "threshold")
+    assert MAX_COLS == {"loop": 58112, "threshold": 57344}

@@ -1,5 +1,5 @@
-"""The port's per-leaf sync at one worker against the reference's
-``sparse_sync_gradients`` inside a 1-device ``shard_map`` (the
+"""The port's per-leaf sync at one worker, on both wires, against the
+reference's ``sparse_sync_gradients`` inside a 1-device ``shard_map`` (the
 ``tests/test_torch_sync.py`` pattern), and its byte accounting and column
 axes against the reference's.
 
@@ -61,8 +61,8 @@ def _ref_cfg(cfg: SyncConfig, layout="batched") -> RefSyncConfig:
         strategy=cfg.strategy, ratio=cfg.ratio, k_min=cfg.k_min,
         bucketed=False, selection=cfg.selection,
         argmax_k_limit=cfg.argmax_k_limit, layout=layout,
-        value_dtype=cfg.value_dtype, dense_below=cfg.dense_below,
-        _warn=False)
+        wire=cfg.wire, value_dtype=cfg.value_dtype,
+        dense_below=cfg.dense_below, _warn=False)
 
 
 def _run_both(cfg: SyncConfig, seed=0, layout="batched"):
@@ -157,7 +157,10 @@ def test_col_axes_and_message_bytes_match_reference(smoke):
     assert cols == jax.tree.map(int, ref_cols)
     for cfg in (SyncConfig(ratio=0.01), SyncConfig(ratio=0.05, k_min=2),
                 SyncConfig(ratio=0.01, value_dtype="bfloat16"),
-                SyncConfig(strategy="dense")):
+                SyncConfig(strategy="dense"),
+                SyncConfig(ratio=0.01, wire="packed"),
+                SyncConfig(ratio=0.03, wire="packed",
+                           value_dtype="bfloat16")):
         assert message_bytes(cfg, shapes, cols) == ref_message_bytes(
             _ref_cfg(cfg), ref_shapes, ref_cols)
     if not smoke:  # full width, 4 layers: 461,824 rows of 2560 at k = 26
@@ -165,11 +168,37 @@ def test_col_axes_and_message_bytes_match_reference(smoke):
             461_824 * 26 * 8 + 24_064 * 4
 
 
-def test_per_leaf_sync_needs_one_worker(monkeypatch):
-    monkeypatch.setattr(dist, "world_size", lambda: 2)
-    tree = {"w": torch.zeros((64, 512))}
-    with pytest.raises(NotImplementedError, match="2 workers"):
-        sparse_sync_gradients(SyncConfig(), tree, tree, 0.1)
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("selection", ["argmax_onehot", "topk_scatter"])
+def test_packed_wire_matches_reference(selection, value_dtype):
+    """The per-leaf packed wire at one worker against the reference's in
+    its 1-device shard_map (each leaf's rows one WireSpec message)."""
+    cfg = SyncConfig(ratio=0.02, selection=selection, wire="packed",
+                     value_dtype=value_dtype)
+    _assert_agree(*_run_both(cfg, seed=7))
+
+
+def test_packed_equals_unpacked_bitwise():
+    out = {}
+    for wire in ("unpacked", "packed"):
+        cfg = SyncConfig(ratio=0.05, wire=wire, value_dtype="bfloat16")
+        upd, mem, _ = sparse_sync_gradients(
+            cfg, params_from_jax(_tree_np(8)), params_from_jax(_tree_np(9)),
+            ETA, COL_AXES)
+        out[wire] = tree_leaves(upd) + tree_leaves(mem)
+    for a, b in zip(out["unpacked"], out["packed"]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_path_bytes_match_the_reference():
+    """The per-leaf path at qwen3-4b full width, 4 layers, ratio 0.02
+    (461,824 rows of 2560 at k = 51, 24,064 dense floats)."""
+    shapes, ref_shapes = _shapes("qwen3-4b", smoke=False)
+    cols, ref_cols = sync_col_axes(shapes), ref_sync_col_axes(ref_shapes)
+    for wire, nbytes in (("packed", 131_254_560), ("unpacked", 188_520_448)):
+        cfg = SyncConfig(ratio=0.02, wire=wire)
+        assert message_bytes(cfg, shapes, cols) == nbytes
+        assert ref_message_bytes(_ref_cfg(cfg), ref_shapes, ref_cols) == nbytes
 
 
 @pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])

@@ -1,6 +1,7 @@
-"""The port's bucketed sync at one worker against the reference's
-``bucketed_sync_gradients`` inside a 1-device ``shard_map`` (the
-``tests/test_buckets.py`` pattern).
+"""The port's bucketed sync at one worker, on both wires, against the
+reference's ``bucketed_sync_gradients`` inside a 1-device ``shard_map``
+(the ``tests/test_buckets.py`` pattern); its presets and byte accounting
+against the reference's. More than one worker: ``test_torch_workers.py``.
 
 Tolerances: the same (m, g) give the same selection (the update's
 support is compared exactly), and update and memory agree within 1e-6
@@ -25,7 +26,6 @@ from repro.core.distributed import bucketed_sync_gradients as ref_sync
 from repro.utils.compat import shard_map
 from repro_torch.convert import params_from_jax
 from repro_torch.core import buckets as bk
-from repro_torch.core import distributed as dist
 from repro_torch.core.distributed import (
     SyncConfig,
     bucketed_message_bytes,
@@ -124,18 +124,22 @@ def test_message_bytes_match_reference():
     plan, rplan = bk.make_plan(tree), rbk.make_plan(rtree)
     for cfg in (SyncConfig(ratio=0.01, bucketed=True),
                 SyncConfig(ratio=0.05, bucketed=True, value_dtype="bfloat16"),
-                SyncConfig(strategy="dense", bucketed=True)):
+                SyncConfig(strategy="dense", bucketed=True),
+                SyncConfig(ratio=0.03, bucketed=True, wire="packed"),
+                SyncConfig(ratio=0.05, bucketed=True, wire="packed",
+                           value_dtype="bfloat16")):
         assert bucketed_message_bytes(cfg, plan) == ref_message_bytes(
             _ref_cfg(cfg), rplan)
 
 
 @pytest.mark.parametrize("change,name", [
-    (dict(strategy="hierarchical"), "hierarchical"),
-    (dict(wire="packed"), "packed"),
-    (dict(quant=15), "quant"),
-    (dict(local_steps=4), "local_steps"),
-    (dict(overlap=True), "overlap"),
-    (dict(bucketed=False, wire="packed"), "packed"),  # the per-leaf path
+    # the ids of the cases kept from before the packed wire was ported
+    pytest.param(dict(strategy="hierarchical"), "hierarchical",
+                 id="change0-hierarchical"),
+    pytest.param(dict(quant=15), "quant", id="change2-quant"),
+    pytest.param(dict(local_steps=4), "local_steps",
+                 id="change3-local_steps"),
+    pytest.param(dict(overlap=True), "overlap", id="change4-overlap"),
 ])
 def test_unported_options_raise_by_name(change, name):
     cfg = dataclasses.replace(SyncConfig(bucketed=True), **change)
@@ -152,13 +156,79 @@ def test_unknown_values_raise(change):
         dataclasses.replace(SyncConfig(bucketed=True), **change).validate()
 
 
-def test_more_than_one_worker_raises(monkeypatch):
-    monkeypatch.setattr(dist, "world_size", lambda: 2)
-    tree = {"w": torch.zeros((64, 512))}
-    plan = bk.make_plan(tree)
-    with pytest.raises(NotImplementedError, match="2 workers"):
-        bucketed_sync_gradients(SyncConfig(bucketed=True), plan,
-                                bk.init_bucket_memory(plan), tree, 0.1)
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("selection", ["argmax_onehot", "threshold_onehot"])
+def test_packed_wire_matches_reference(selection, value_dtype):
+    """The packed wire at one worker against the reference's packed sync
+    in its 1-device shard_map; its bytes are the packed buffers'."""
+    cfg = SyncConfig(ratio=0.02, bucketed=True, bucket_cols=COLS,
+                     selection=selection, wire="packed",
+                     value_dtype=value_dtype)
+    _assert_agree(*_run_both(cfg, seed=4))
+
+
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+def test_packed_equals_unpacked_bitwise(value_dtype):
+    """The reference's packed == unpacked invariant, inside the port."""
+    out = {}
+    for wire in ("unpacked", "packed"):
+        cfg = SyncConfig(ratio=0.05, bucketed=True, bucket_cols=COLS,
+                         wire=wire, value_dtype=value_dtype)
+        tree = params_from_jax(_tree_np(5))
+        plan = bk.make_plan(tree, cols=COLS)
+        mem = [torch.from_numpy(np.random.default_rng(6).standard_normal(
+            s.shape).astype(np.float32)) for s in plan.buckets]
+        upd, new_mem, _ = bucketed_sync_gradients(cfg, plan, mem, tree, ETA)
+        out[wire] = tree_leaves(upd) + list(new_mem)
+    for a, b in zip(out["unpacked"], out["packed"]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_path_bytes_match_the_reference():
+    """The topk preset's bytes per step at qwen3-4b full width, 4 layers
+    (1154560 rows of 1024 at k = 20, a dense bucket of 24064), for every
+    wire and value dtype, against the reference's accounting."""
+    from repro.configs import get_config as ref_get_config
+    from repro.models import build_model as ref_build_model
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    plan = bk.make_plan(build_model(get_config("qwen3-4b").replace(
+        n_layers=4)).param_shapes())
+    rplan = rbk.make_plan(ref_build_model(ref_get_config("qwen3-4b").replace(
+        n_layers=4)).param_shapes())
+    want = {("packed", "float32"): 124_788_768,
+            ("packed", "bfloat16"): 78_606_368,
+            ("unpacked", "float32"): 184_825_856,
+            ("unpacked", "bfloat16"): 138_643_456}
+    for (wire, vd), nbytes in want.items():
+        cfg = SyncConfig.preset("topk", ratio=0.02, wire=wire, value_dtype=vd)
+        assert bucketed_message_bytes(cfg, plan) == nbytes
+        assert ref_message_bytes(_ref_cfg(cfg), rplan) == nbytes
+    dense = SyncConfig.preset("dense", bucketed=True)
+    assert bucketed_message_bytes(dense, plan) == 4_729_174_016
+
+
+@pytest.mark.parametrize("name,overrides", [
+    ("topk", {}), ("topk", dict(ratio=0.02)),
+    ("topk", dict(wire="unpacked", value_dtype="bfloat16")),
+    ("dense", {}), ("dense", dict(bucketed=True, ratio=0.05))])
+def test_presets_match_reference(name, overrides):
+    cfg = SyncConfig.preset(name, **overrides)
+    rcfg = RefSyncConfig.preset(name, **overrides)
+    for field in dataclasses.fields(cfg):
+        assert getattr(cfg, field.name) == getattr(rcfg, field.name), field
+    cfg.validate()
+
+
+@pytest.mark.parametrize("name,words", [
+    ("qsparse_local", "local steps"), ("pod_budgeted", "hierarchical")])
+def test_unported_presets_raise_by_name(name, words):
+    RefSyncConfig.preset(name)  # the reference has it
+    with pytest.raises(NotImplementedError, match=words):
+        SyncConfig.preset(name)
+    with pytest.raises(ValueError, match="unknown SyncConfig preset"):
+        SyncConfig.preset("bogus")
 
 
 def test_k_for_matches_reference():

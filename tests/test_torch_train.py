@@ -32,7 +32,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import memory_from_jax, memory_to_jax, params_from_jax
 from repro_torch.core.buckets import make_plan
 from repro_torch.core.distributed import SyncConfig
-from repro_torch.data import DeviceBatcher, token_batches
+from repro_torch.data import DeviceBatcher, take, token_batches
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.train import (
     TrainConfig,
@@ -210,3 +210,72 @@ def test_eta_schedule_matches_reference(eta, shift):
     ref = ref_eta_schedule(RefTrainConfig(eta=eta, eta_shift=shift))
     for t in (0, 1, 7, 1000):
         assert ours(t) == float(ref(jnp.asarray(t, jnp.int32)))
+
+
+def _cli_sync(argv):
+    """The sync config the port's CLI builds from ``argv`` (its own
+    parser, captured at the step)."""
+    seen = {}
+    real = train_mod.train
+
+    def keep(model, tc, *a, **kw):
+        seen["sync"] = tc.sync
+        return None
+
+    train_mod.train = keep
+    try:
+        train_mod.main(["--platform", "cpu", *argv])
+    finally:
+        train_mod.train = real
+    return seen["sync"]
+
+
+@pytest.mark.parametrize("argv,name,overrides", [
+    (["--preset", "topk"], "topk", {}),
+    (["--preset", "topk", "--ratio", "0.02"], "topk", dict(ratio=0.02)),
+    (["--preset", "topk", "--wire", "unpacked", "--ratio", "0.02"], "topk",
+     dict(ratio=0.02)),  # --wire's default is not an explicit override
+    (["--preset", "dense", "--bucketed"], "dense", dict(bucketed=True)),
+    (["--preset", "dense", "--strategy", "sparse_allgather", "--ratio",
+      "0.05"], "dense", dict(ratio=0.05)),
+])
+def test_cli_preset_matches_reference(argv, name, overrides):
+    """Explicit flags override the preset's fields, as the reference's
+    ``_sync_from_args`` does (a flag left at its default does not)."""
+    got = _cli_sync(argv)
+    want = RefSyncConfig.preset(name, **overrides)
+    for field in ("strategy", "ratio", "bucketed", "wire", "value_dtype",
+                  "k_min", "k_max", "local_steps", "quant"):
+        assert getattr(got, field) == getattr(want, field), field
+
+
+def test_cli_unported_preset_raises_by_name():
+    with pytest.raises(NotImplementedError, match="qsparse_local"):
+        train_mod.main(["--platform", "cpu", "--preset", "qsparse_local"])
+
+
+def test_main_trains_the_topk_preset_on_the_cpu():
+    out = io.StringIO()
+    with redirect_stdout(out):
+        *_, memory, _, count, history = train_mod.main(
+            ["--platform", "cpu", "--preset", "topk", "--ratio", "0.02",
+             "--steps", "2", "--batch", "2", "--seq", "32"])
+    assert count == 2 and isinstance(memory, tuple)
+    assert all(math.isfinite(x) for _, x in history)
+
+
+def test_sharded_batcher_gives_each_rank_its_slice():
+    from repro_torch.data import ShardedBatcher
+
+    batches = list(take(token_batches(512, 4, 8, seed=0), 2))
+    for rank in range(2):
+        got = list(ShardedBatcher(iter(batches), "cpu", rank=rank, world=2))
+        for b, full in zip(got, batches):
+            for k, v in full.items():
+                np.testing.assert_array_equal(
+                    b[k].numpy(), v[2 * rank:2 * rank + 2])
+    with pytest.raises(ValueError, match="does not divide"):
+        next(iter(ShardedBatcher(iter(batches), "cpu", rank=0, world=3)))
+    one = next(iter(ShardedBatcher(iter(batches), "cpu")))  # no group: all
+    np.testing.assert_array_equal(one["tokens"].numpy(),
+                                  batches[0]["tokens"])

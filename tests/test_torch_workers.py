@@ -1,0 +1,214 @@
+"""The port's sync over two workers (a 2-rank gloo group on the CPU)
+against the reference's at W = 2, which runs in-process under
+``jax.vmap(..., axis_name="data")``.
+
+The two gloo processes start once for this file (the ``runs`` fixture):
+each rank runs both sync paths x both wires x float32/bf16 wire values on
+its own inputs (made with numpy from a seed and the rank), then a 2-rank
+``main(["--preset", "topk", "--platform", "cpu", ...])`` on the smoke
+config, and saves what it got. The tests compare:
+
+* the update's support exactly, update and memory within 1e-6 (the
+  reference's FMA allowance on ``m + eta*g``), bytes equal;
+* packed == unpacked bit for bit, and the two ranks' updates bit for bit;
+* the CLI's step-0 loss (the mean of the ranks' half-batch losses)
+  against the reference's full-batch loss within rtol 1e-5 (the
+  tolerance of ``test_torch_train.py``, float32 compute), and params
+  bit-identical across the ranks after the run.
+"""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as ref_get_smoke_config
+from repro.core import buckets as rbk
+from repro.core.distributed import SyncConfig as RefSyncConfig
+from repro.core.distributed import bucketed_message_bytes as ref_bucket_bytes
+from repro.core.distributed import bucketed_sync_gradients as ref_bucketed
+from repro.core.distributed import message_bytes as ref_leaf_bytes
+from repro.core.distributed import sparse_sync_gradients as ref_leaf
+from repro.models import build_model as ref_build_model
+from repro_torch.convert import params_from_jax, params_to_jax
+from repro_torch.utils.tree import tree_leaves
+
+W = 2
+ETA = 0.3
+COLS = 512
+COL_AXES = {"w1": 0, "w2": 1, "blk": {"z": 1, "v": None}, "b": None,
+            "s": None}
+CASES = [(path, wire, vd) for path in ("bucketed", "per-leaf")
+         for wire in ("unpacked", "packed")
+         for vd in ("float32", "bfloat16")]
+MAIN_ARGS = ["--preset", "topk", "--platform", "cpu", "--steps", "2",
+             "--batch", "4", "--seq", "32"]
+
+
+def _tree_np(seed):
+    rng = np.random.default_rng(seed)
+
+    def f32(*s):
+        return rng.standard_normal(s).astype(np.float32)
+
+    return {"w1": f32(128, 256), "w2": f32(3, 64, 100),
+            "blk": {"z": f32(90, 200), "v": f32(60, 300)},
+            "b": f32(64), "s": f32(8, 16)}
+
+
+def _inputs(path, rank):
+    """This rank's (memory, grads) as numpy: a tree, or for the bucketed
+    path the plan's memory buffers and a tree."""
+    grads = _tree_np(10 + rank)
+    if path == "per-leaf":
+        return _tree_np(20 + rank), grads
+    from repro_torch.core import buckets as bk
+
+    plan = bk.make_plan(params_from_jax(grads), cols=COLS)
+    rng = np.random.default_rng(30 + rank)
+    return [rng.standard_normal(s.shape).astype(np.float32)
+            for s in plan.buckets], grads
+
+
+def _cfg(path, wire, vd):
+    from repro_torch.core.distributed import SyncConfig
+
+    return SyncConfig(ratio=0.02, bucketed=path == "bucketed",
+                      bucket_cols=COLS, wire=wire, value_dtype=vd)
+
+
+def _worker(rank, tmp):
+    """One gloo rank: every sync case, then the CLI; saves its results."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch.distributed as dist
+
+    import repro_torch.configs as configs
+    from repro_torch.core import buckets as bk
+    from repro_torch.core.distributed import (bucketed_sync_gradients,
+                                              sparse_sync_gradients)
+    from repro_torch.launch import train as train_mod
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg",
+                            rank=rank, world_size=W)
+    out = {}
+    try:
+        for path, wire, vd in CASES:
+            mem_np, grads_np = _inputs(path, rank)
+            grads = params_from_jax(grads_np)
+            cfg = _cfg(path, wire, vd)
+            if path == "bucketed":
+                plan = bk.make_plan(grads, cols=COLS)
+                upd, mem, nbytes = bucketed_sync_gradients(
+                    cfg, plan, [torch.from_numpy(m) for m in mem_np], grads,
+                    ETA)
+                mem = list(mem)
+            else:
+                upd, mem, nbytes = sparse_sync_gradients(
+                    cfg, params_from_jax(mem_np), grads, ETA, COL_AXES)
+                mem = tree_leaves(mem)
+            out[(path, wire, vd)] = (tree_leaves(upd), mem, nbytes)
+        get = configs.get_smoke_config  # float32 compute for the parity
+        configs.get_smoke_config = lambda arch: get(arch).replace(
+            compute_dtype="float32")
+        text = io.StringIO()
+        with redirect_stdout(text):
+            params, memory, _, count, history = train_mod.main(MAIN_ARGS)
+        out["main"] = (tree_leaves(params), history, count, text.getvalue())
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both ranks' results, from one 2-process gloo run for the file."""
+    import torch.multiprocessing as mp
+
+    tmp = str(tmp_path_factory.mktemp("gloo"))
+    mp.spawn(_worker, args=(tmp,), nprocs=W, join=True)
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(W)]
+
+
+def _reference(path, wire, vd):
+    """The reference's W = 2 sync under vmap over the worker axis:
+    (update leaves per worker, memory leaves per worker, bytes)."""
+    cfg = _cfg(path, wire, vd)
+    rcfg = RefSyncConfig(ratio=cfg.ratio, bucketed=cfg.bucketed,
+                         bucket_cols=COLS, wire=wire, value_dtype=vd,
+                         _warn=False)
+    mems, grads = zip(*(_inputs(path, r) for r in range(W)))
+    stack = lambda *xs: jnp.stack([jnp.asarray(x) for x in xs])  # noqa
+    g = jax.tree.map(stack, *grads)
+    if path == "bucketed":
+        plan = rbk.make_plan(jax.tree.map(jnp.asarray, grads[0]), cols=COLS)
+        m = tuple(stack(*bs) for bs in zip(*mems))
+        fn = lambda m, g: ref_bucketed(  # noqa: E731
+            rcfg, plan, m, g, jnp.float32(ETA))[:2]
+        nbytes = ref_bucket_bytes(rcfg, plan)
+    else:
+        m = jax.tree.map(stack, *mems)
+        fn = lambda m, g: ref_leaf(  # noqa: E731
+            rcfg, m, g, jnp.float32(ETA), COL_AXES)[:2]
+        nbytes = ref_leaf_bytes(rcfg, grads[0], COL_AXES)
+    upd, mem = jax.jit(jax.vmap(fn, axis_name="data"))(m, g)
+    return ([np.asarray(x) for x in jax.tree.leaves(upd)],
+            [np.asarray(x) for x in jax.tree.leaves(mem)], nbytes)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("path,wire,vd", CASES)
+def test_sync_matches_reference_at_two_workers(runs, path, wire, vd):
+    r_upd, r_mem, r_nbytes = _reference(path, wire, vd)
+    for rank in range(W):
+        upd, mem, nbytes = runs[rank][(path, wire, vd)]
+        assert nbytes == r_nbytes
+        assert len(upd) == len(r_upd) and len(mem) == len(r_mem)
+        for a, b in zip(upd, r_upd):
+            a, b = a.numpy(), b[rank]
+            np.testing.assert_array_equal(a != 0, b != 0)  # the support
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+        for a, b in zip(mem, r_mem):
+            np.testing.assert_allclose(a.numpy(), b[rank], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("path", ["bucketed", "per-leaf"])
+@pytest.mark.parametrize("vd", ["float32", "bfloat16"])
+def test_packed_equals_unpacked_and_ranks_agree(runs, path, vd):
+    for rank in range(W):
+        p_upd, p_mem, _ = runs[rank][(path, "packed", vd)]
+        u_upd, u_mem, _ = runs[rank][(path, "unpacked", vd)]
+        for a, b in zip(p_upd + p_mem, u_upd + u_mem):
+            assert torch.equal(_bits(a), _bits(b))
+    for a, b in zip(runs[0][(path, "packed", vd)][0],
+                    runs[1][(path, "packed", vd)][0]):
+        assert torch.equal(_bits(a), _bits(b))  # one update on every rank
+
+
+def test_two_rank_main_matches_the_full_batch_reference(runs):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import token_batches
+    from repro_torch.models import build_model
+
+    (p0, h0, c0, text0), (p1, h1, c1, text1) = (runs[r]["main"]
+                                                for r in range(W))
+    assert c0 == c1 == 2 and h0 == h1  # the loss is the workers' mean
+    assert "step     0" in text0 and text1 == ""  # only rank 0 prints
+    for a, b in zip(p0, p1):
+        assert torch.equal(_bits(a), _bits(b))
+    cfg = get_smoke_config("qwen3-4b").replace(compute_dtype="float32")
+    params = params_to_jax(build_model(cfg).init(seed=0, device="cpu"))
+    batch = next(token_batches(cfg.vocab_size, 4, 32, seed=0))
+    rmodel = ref_build_model(ref_get_smoke_config("qwen3-4b").replace(
+        compute_dtype="float32"))
+    _, metrics = rmodel.loss(jax.tree.map(jnp.asarray, params),
+                             {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_allclose(h0[0][1], float(metrics["xent"]), rtol=1e-5)
