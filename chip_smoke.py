@@ -48,16 +48,30 @@ Phases, each of which fails the run with a non-zero exit:
    must be identical: the contract fixes the selection. After the first
    run, one more step keeps its own u of the embed and lm_head leaves:
    both top-k kernels bitwise against the plain version on it, and timed.
+6. The same three paths on rwkv6-3b (RWKV-6 "Finch") at full width, depth
+   cut to 8 layers: bucketed (its (1002500, 1024) bucket, k = 10), the
+   topk preset (packed, then unpacked: identical losses) and the per-leaf
+   path with ``argmax_onehot`` (22 loop launches and, for the k = 90 leaf
+   above ``argmax_k_limit``, 1 threshold launch per step), each checking
+   its bytes per step against the reference's accounting.
    For every path run, every launch count is zeroed just before it and
    read just after; after each path, a few more steps run under
    torch.profiler: wall and device-busy time per step, and the kernels
    that take the most device time.
-6. A small input: one train step of the qwen3-4b smoke config in float32
-   on the card and on the CPU (the plain versions) must agree, on the
-   bucketed path, the topk preset and the per-leaf path.
+7. A small input: one train step of each architecture's smoke config in
+   float32 on the card and on the CPU (the plain versions) must agree, on
+   the bucketed path, the topk preset and the per-leaf path.
 
-Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
-then the result line ``{"ok": true, "device": {...}}`` last.
+Phase 3 runs the kernels at both architectures' shapes: the fused kernel
+at each bucket, the top-k kernels at every per-leaf (rows, C, k) of both,
+timed per per-leaf step of each and, for rwkv6-3b, over its rows narrower
+than 1024 alone.
+
+Prints each architecture's launches per kernel on a
+``{"launches_by_arch": ...}`` line, then a ``{"kernels": [...]}`` line
+(the main path's, qwen3-4b's, shapes and launches), then the card's name
+and power limit, then the result line ``{"ok": true, "device": {...}}``
+last.
 """
 from __future__ import annotations
 
@@ -83,12 +97,22 @@ F32_FLOPS_PER_S = 67e12
 ARCH, N_LAYERS, BATCH, SEQ, STEPS = "qwen3-4b", 4, 4, 512, 4
 RATIO, ETA = 0.01, 0.5
 PATH_SHAPE, PATH_K = (1154560, 1024), 10  # its sparse bucket, k = 0.01 * 1024
-# the per-leaf path selects k = round(0.01 * 2560) = 26 per 2560-wide row
-LEAF_K = 26
 # the topk preset path: the same bucket at k = round(0.02 * 1024) = 20,
 # the fused kernel's threshold branch; its bytes per step on the packed
 # wire (the reference's bucketed_message_bytes)
 TOPK_RATIO, TOPK_K, TOPK_BYTES = 0.02, 20, 124_788_768
+# the second configuration: rwkv6-3b (RWKV-6 "Finch") at full width, depth
+# cut to 8 layers, the same batches at the eta of the reference's own
+# rwkv6-3b Mem-SGD runs (benchmarks/run.py:1532, the local-steps benchmark);
+# its sparse bucket and its bytes per step on each path (the reference's
+# accounting)
+RWKV_ARCH, RWKV_LAYERS, RWKV_ETA = "rwkv6-3b", 8, 0.1
+ETAS = {ARCH: ETA, RWKV_ARCH: RWKV_ETA}
+RWKV_SHAPE = (1002500, 1024)
+RWKV_BYTES = {"per-leaf": 83_927_936, "bucketed": 80_210_240,
+              "topk packed": 108_280_272, "topk unpacked": 160_410_240}
+# the per-leaf rows narrower than this are timed on their own
+NARROW_C = 1024
 KERNEL_SOURCES = ("fused_memsgd", "topk_select")
 TOPK_KERNELS = ("row_topk_loop", "row_topk_threshold")
 SWEEP_KS = (1, 2, 4, 8, 12, 14, 16, 20, 24, 26, 32, 33, 48, 64)
@@ -224,6 +248,9 @@ def kernel_cases(dev):
            flat_g[1:].view(8, 1024), 0.37, 16)
     yield (f"main path {PATH_SHAPE} k={PATH_K}", randn(PATH_SHAPE, 13) * 0.01,
            randn(PATH_SHAPE, 14), ETA, PATH_K)
+    yield (f"{RWKV_ARCH} bucket {RWKV_SHAPE} k={PATH_K}",
+           randn(RWKV_SHAPE, 15) * 0.01, randn(RWKV_SHAPE, 16), RWKV_ETA,
+           PATH_K)
 
 
 def phase_kernel(dev) -> dict:
@@ -334,9 +361,10 @@ def fused_threshold_cases(dev):
 
 def phase_fused_threshold(dev) -> dict:
     """The fused kernel's threshold branch bitwise against the plain
-    version, then both branches timed at the bucket's shape (k = 10 and
-    the topk preset's k = 20, whose figures the returned entry keeps)
-    beside the plain version, the library call and the bound, then the
+    version, then both branches timed at each configuration's bucket
+    (k = 10 and the topk preset's k = 20; the entry keeps the main path's
+    figures at k = 20) beside the plain version, the library call and the
+    bound, then the
     fused sweep (loop against threshold branch at C = 1024 over k)."""
     from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
     from repro_torch.kernels.ref import fused_memsgd_ref
@@ -366,33 +394,43 @@ def phase_fused_threshold(dev) -> dict:
     print(f"  fused_memsgd threshold branch: {n} cases bitwise equal")
     torch.cuda.empty_cache()
 
-    # both branches at the bucket's shape, in turns: at the topk preset's
-    # k = 20 (the branch's entry below) and at the bucketed path's k = 10
+    # both branches at each configuration's bucket, in turns: at the topk
+    # preset's k = 20 and at the bucketed path's k = 10; the branch's entry
+    # below keeps the main path's figures at k = 20
     gen = torch.Generator(device=dev)
-    gen.manual_seed(13)
-    m = torch.randn(PATH_SHAPE, generator=gen, device=dev) * 0.01
-    gen.manual_seed(14)
-    g = torch.randn(PATH_SHAPE, generator=gen, device=dev)
-    R, C = PATH_SHAPE
-    for k in (PATH_K, TOPK_K):
-        t = collections.defaultdict(list)
-        for sel in ("threshold", "loop", "loop", "threshold"):
-            t[sel].append(cuda_ms(
-                lambda: fused_memsgd_cuda(m, g, ETA, k, sel), iters=10,
-                warmup=2))
-        plain_ms = cuda_ms(lambda: fused_memsgd_ref(m, g, ETA, k), iters=3)
-        library_ms = cuda_ms(lambda: fused_library(m, g, ETA, k), iters=3)
-        nbytes = 3 * R * C * 4 + R * k * 8
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        op_ms = 2 * R * C / F32_FLOPS_PER_S * 1e3
-        ms = sum(t["threshold"]) / 2
-        print(f"  fused_memsgd {PATH_SHAPE} k={k}: threshold branch "
-              f"{' / '.join(f'{x:.4f}' for x in t['threshold'])} ms, loop "
-              f"branch {' / '.join(f'{x:.4f}' for x in t['loop'])} ms, "
-              f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-              f"{max(byte_ms, op_ms):.4f} ms ({nbytes} bytes)")
-    del m, g
-    torch.cuda.empty_cache()
+    entry = None
+    for arch, shape, seed in ((ARCH, PATH_SHAPE, 13),
+                              (RWKV_ARCH, RWKV_SHAPE, 15)):
+        gen.manual_seed(seed)
+        m = torch.randn(shape, generator=gen, device=dev) * 0.01
+        gen.manual_seed(seed + 1)
+        g = torch.randn(shape, generator=gen, device=dev)
+        R, C = shape
+        for k in (PATH_K, TOPK_K):
+            t = collections.defaultdict(list)
+            eta = ETAS[arch]
+            for sel in ("threshold", "loop", "loop", "threshold"):
+                t[sel].append(cuda_ms(
+                    lambda: fused_memsgd_cuda(m, g, eta, k, sel), iters=10,
+                    warmup=2))
+            plain_ms = cuda_ms(lambda: fused_memsgd_ref(m, g, eta, k),
+                               iters=3)
+            library_ms = cuda_ms(lambda: fused_library(m, g, eta, k),
+                                 iters=3)
+            nbytes = 3 * R * C * 4 + R * k * 8
+            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            op_ms = 2 * R * C / F32_FLOPS_PER_S * 1e3
+            ms = sum(t["threshold"]) / 2
+            print(f"  fused_memsgd {arch} {shape} k={k}: threshold branch "
+                  f"{' / '.join(f'{x:.4f}' for x in t['threshold'])} ms, "
+                  f"loop branch {' / '.join(f'{x:.4f}' for x in t['loop'])} "
+                  f"ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} "
+                  f"ms, bound {max(byte_ms, op_ms):.4f} ms ({nbytes} bytes)")
+            if arch == ARCH and k == TOPK_K:
+                entry = (ms, plain_ms, library_ms, byte_ms, op_ms)
+        del m, g
+        torch.cuda.empty_cache()
+    ms, plain_ms, library_ms, byte_ms, op_ms = entry
 
     # the fused sweep: loop against threshold branch at C = 1024, in turns
     Rs = 40960 * 2560 // 1024
@@ -427,22 +465,21 @@ def phase_fused_threshold(dev) -> dict:
     }
 
 
-def leaf_row_shapes() -> collections.Counter:
-    """The per-leaf path's top-k shapes: (rows, C) of each sparse leaf with
-    its column axis last, and how many leaves give each, per step."""
-    from repro_torch.configs import get_config
+def leaf_row_shapes(arch=ARCH, n_layers=N_LAYERS) -> collections.Counter:
+    """The per-leaf path's top-k calls: (rows, C, k) of each sparse leaf
+    with its column axis last and its k = k_for(C), and how many leaves
+    give each, per step."""
     from repro_torch.core.distributed import SyncConfig
     from repro_torch.launch.sharding import sync_col_axes
-    from repro_torch.models import build_model
     from repro_torch.utils.tree import tree_leaves
 
-    shapes = build_model(get_config(ARCH).replace(
-        n_layers=N_LAYERS)).param_shapes()
-    dense_below = SyncConfig().dense_below
+    shapes = full_model(arch, n_layers).param_shapes()
+    sync = SyncConfig(ratio=RATIO)
     out = collections.Counter()
     for p, c in zip(tree_leaves(shapes), tree_leaves(sync_col_axes(shapes))):
-        if p.numel() >= dense_below:
-            out[(p.numel() // p.shape[c], p.shape[c])] += 1
+        if p.numel() >= sync.dense_below:
+            C = p.shape[c]
+            out[(p.numel() // C, C, sync.k_for(C))] += 1
     return out
 
 
@@ -455,7 +492,8 @@ def topk_library(x, k):
 
 
 def topk_cases(dev, leaf_shapes):
-    """Yields (label, x, k) on the card, made from seeds, one at a time."""
+    """Yields (label, x, k) on the card, made from seeds, one at a time.
+    ``leaf_shapes``: arch -> its per-leaf (rows, C, k) calls."""
     gen = torch.Generator(device=dev)
 
     def randn(shape, seed):
@@ -490,10 +528,14 @@ def topk_cases(dev, leaf_shapes):
     for k in (7, 100):
         yield (f"C=60000, wider than shared memory (3,60000) k={k}",
                randn((3, 60000), 8), k)
-    for i, (R, C) in enumerate(sorted(leaf_shapes)):
-        for k in (LEAF_K, 3):
-            yield (f"per-leaf path ({R},{C}) k={k}",
-                   randn((R, C), 20 + i) * 0.01, k)
+    i = 0
+    for arch, calls in leaf_shapes.items():
+        for (R, C, k_row) in sorted(calls):
+            for k in (k_row, 3):
+                if k <= C:
+                    yield (f"{arch} per-leaf path ({R},{C}) k={k}",
+                           randn((R, C), 20 + i) * 0.01, k)
+            i += 1
     for label, x, k in design_edges():
         yield label, torch.from_numpy(x).to(dev), k
 
@@ -575,8 +617,10 @@ def topk_wrappers() -> dict:
 
 def phase_topk(dev, leaf_shapes) -> list:
     """Both top-k kernels bitwise against the plain version, then their
-    times per per-leaf step (the sum over the path's leaves) beside the
-    plain version's, the library call's and the bound."""
+    times per per-leaf step of each architecture (the sum over the path's
+    leaves) beside the plain version's, the library call's and the bound.
+    ``leaf_shapes``: arch -> its per-leaf (rows, C, k) calls. Returns the
+    kernels' entries at the main path's (ARCH's) shapes."""
     from repro_torch.kernels.ref import row_topk_ref
 
     fns = topk_wrappers()
@@ -607,31 +651,12 @@ def phase_topk(dev, leaf_shapes) -> list:
         else:
             fail(f"a bf16 CUDA tensor reached {name}")
 
-    step = {name: collections.Counter() for name in TOPK_KERNELS}
-    nbytes = nops = 0
     gen = torch.Generator(device=dev)
-    for i, ((R, C), n) in enumerate(sorted(leaf_shapes.items())):
-        gen.manual_seed(30 + i)
-        x = torch.randn((R, C), generator=gen, device=dev) * 0.01
-        plain_ms = cuda_ms(lambda: row_topk_ref(x, LEAF_K), iters=2)
-        library_ms = cuda_ms(lambda: topk_library(x, LEAF_K), iters=3)
-        line = []
-        for name, fn in fns.items():
-            ms = cuda_ms(lambda: fn(x, LEAF_K), iters=10, warmup=2)
-            step[name].update(ms=n * ms, plain_ms=n * plain_ms,
-                              library_ms=n * library_ms)
-            line.append(f"{name} {ms:.4f} ms")
-        nbytes += n * (R * C * 4 + R * LEAF_K * 8)
-        nops += n * R * C  # one magnitude compare per element
-        print(f"  top-k ({R},{C}) k={LEAF_K} x{n} per step: "
-              f"{', '.join(line)}, plain {plain_ms:.4f} ms, library "
-              f"{library_ms:.4f} ms; "
-              f"{'; '.join(plan_text(name, R, C) for name in fns)}")
-        del x
-        torch.cuda.empty_cache()
+    times = {arch: leaf_step_times(dev, gen, arch, calls, fns)
+             for arch, calls in leaf_shapes.items()}
     # the rows' copy into shared memory: 16-byte aligned rows come by bulk
     # copy, the same rows 4 bytes past alignment by the lanes' plain loads
-    R, C = max(leaf_shapes)
+    R, C, k = max(leaf_shapes[ARCH])
     gen.manual_seed(29)
     flat = torch.randn(R * C + 1, generator=gen, device=dev) * 0.01
     views = {"aligned": flat[:-1].view(R, C), "offset": flat[1:].view(R, C)}
@@ -640,30 +665,79 @@ def phase_topk(dev, leaf_shapes) -> list:
         for _ in range(2):  # in turns: aligned, offset, aligned, offset
             for v, x in views.items():
                 got.setdefault(v, []).append(
-                    cuda_ms(lambda: fn(x, LEAF_K), iters=10, warmup=2))
-        print(f"  {name} ({R},{C}) k={LEAF_K}, rows' copy: "
+                    cuda_ms(lambda: fn(x, k), iters=10, warmup=2))
+        print(f"  {name} ({R},{C}) k={k}, rows' copy: "
               + ", ".join(f"{v} " + " / ".join(f"{t:.4f}" for t in ts)
                           + " ms" for v, ts in got.items()))
     del flat, views
     torch.cuda.empty_cache()
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = nops / F32_FLOPS_PER_S * 1e3
     out = []
     for name, line in zip(TOPK_KERNELS, ("285", "315")):
-        t = step[name]
-        print(f"  {name} per per-leaf step ({sum(leaf_shapes.values())} "
-              f"launches): kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
-              f"bound {max(byte_ms, op_ms):.4f} ms ({nbytes} bytes)")
+        t, bound_ms, bound_by = times[ARCH]["all"][name]
         out.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/topk_select.cu",
             "replaces": f"src/repro/kernels/topk_select.py:{line}",
             "max_abs_err": worst[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": max(byte_ms, op_ms),
-            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "library_ms": t["library_ms"], "ok": True,
+            "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": t["library_ms"], "ok": True,
         })
+    return out
+
+
+def leaf_step_times(dev, gen, arch, calls, fns) -> dict:
+    """Each top-k kernel's time per per-leaf step of ``arch`` (the sum over
+    its sparse leaves, each at its own (rows, C, k), on random rows) beside
+    the plain version's, the library call's and the bound; the same over
+    the rows narrower than NARROW_C alone. Returns {"all", "narrow"} ->
+    kernel -> (times, bound ms, bound by)."""
+    from repro_torch.kernels.ref import row_topk_ref
+
+    sums = {part: {name: collections.Counter() for name in TOPK_KERNELS}
+            for part in ("all", "narrow")}
+    work = {part: collections.Counter() for part in ("all", "narrow")}
+    for i, ((R, C, k), n) in enumerate(sorted(calls.items())):
+        gen.manual_seed(30 + i)
+        x = torch.randn((R, C), generator=gen, device=dev) * 0.01
+        plain_ms = cuda_ms(lambda: row_topk_ref(x, k), iters=2)
+        library_ms = cuda_ms(lambda: topk_library(x, k), iters=3)
+        parts = ("all", "narrow") if C < NARROW_C else ("all",)
+        line = []
+        for name, fn in fns.items():
+            ms = cuda_ms(lambda: fn(x, k), iters=10, warmup=2)
+            for part in parts:
+                sums[part][name].update(ms=n * ms, plain_ms=n * plain_ms,
+                                        library_ms=n * library_ms)
+            line.append(f"{name} {ms:.4f} ms")
+        for part in parts:
+            # each row read once, k (value, index) pairs written; one
+            # magnitude compare per element
+            work[part].update(bytes=n * (R * C * 4 + R * k * 8),
+                              ops=n * R * C, launches=n)
+        print(f"  {arch} top-k ({R},{C}) k={k} x{n} per step: "
+              f"{', '.join(line)}, plain {plain_ms:.4f} ms, library "
+              f"{library_ms:.4f} ms; "
+              f"{'; '.join(plan_text(name, R, C) for name in fns)}")
+        del x
+        torch.cuda.empty_cache()
+    out = {}
+    for part, what in (("all", "per per-leaf step"),
+                       ("narrow", f"rows narrower than {NARROW_C}")):
+        w = work[part]
+        if not w:
+            continue
+        byte_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3
+        op_ms = w["ops"] / F32_FLOPS_PER_S * 1e3
+        bound_by = "bytes" if byte_ms >= op_ms else "operations"
+        out[part] = {}
+        for name in TOPK_KERNELS:
+            t = sums[part][name]
+            out[part][name] = (t, max(byte_ms, op_ms), bound_by)
+            print(f"  {arch} {name} {what} ({w['launches']} launches): "
+                  f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                  f"library {t['library_ms']:.4f} ms, bound "
+                  f"{max(byte_ms, op_ms):.4f} ms ({w['bytes']} bytes, "
+                  f"{bound_by})")
     return out
 
 
@@ -738,8 +812,8 @@ def run_path(label, model, tc, dev, expect: dict):
     """One path's run through ``train()`` for STEPS steps from the seeded
     init: every launch count zeroed just before, read just after, and
     checked against ``expect`` (kernel -> launches; every other kernel 0).
-    Fails unless the losses are finite from near ln V and every parameter
-    moved somewhere. Returns (losses, counts, params, memory, batches)."""
+    Fails unless the losses are finite from near ln V, the last below the
+    first, and every parameter moved somewhere. Returns (losses, counts, params, memory, batches)."""
     from repro_torch.data import DeviceBatcher, token_batches
     from repro_torch.launch.train import train
     from repro_torch.utils.tree import tree_leaves
@@ -777,6 +851,8 @@ def run_path(label, model, tc, dev, expect: dict):
     if not lnv - 1 <= losses[0] <= lnv + 2:
         fail(f"{label}: first loss {losses[0]} outside [ln V - 1, ln V + 2] "
              f"= [{lnv - 1:.3f}, {lnv + 2:.3f}]")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall in {STEPS} steps: {losses}")
     want = {name: expect.get(name, 0) for name in counts}
     if counts != want:
         fail(f"{label}: launches {counts} in {STEPS} steps, expected {want}")
@@ -785,47 +861,54 @@ def run_path(label, model, tc, dev, expect: dict):
     return losses, counts, params, memory, batches
 
 
-def full_model():
+def full_model(arch=ARCH, n_layers=N_LAYERS):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    return build_model(get_config(ARCH).replace(n_layers=N_LAYERS))
+    return build_model(get_config(arch).replace(n_layers=n_layers))
 
 
-def phase_bucketed(dev) -> int:
-    """The bucketed path; returns the fused kernel's launches in its run."""
+def phase_bucketed(dev, arch=ARCH, n_layers=N_LAYERS, shape=PATH_SHAPE,
+                   nbytes=None) -> int:
+    """The bucketed path of ``arch``; returns the fused kernel's launches
+    in its run."""
     from repro_torch.core.buckets import make_plan
     from repro_torch.core.distributed import SyncConfig, bucketed_message_bytes
     from repro_torch.launch.train import TrainConfig
 
-    model = full_model()
-    tc = TrainConfig(optimizer="memsgd", eta=ETA,
+    model = full_model(arch, n_layers)
+    tc = TrainConfig(optimizer="memsgd", eta=ETAS[arch],
                      sync=SyncConfig(ratio=RATIO, bucketed=True))
     dense_sync = SyncConfig(strategy="dense", bucketed=True)
     plan = make_plan(model.param_shapes(), cols=tc.sync.bucket_cols,
                      dense_below=tc.sync.dense_below)
     sparse = [s.shape for s in plan.buckets if s.kind == "sparse"]
-    print(f"bucketed path: {ARCH} {N_LAYERS} layers at full width, "
+    wire = bucketed_message_bytes(tc.sync, plan)
+    print(f"bucketed path: {arch} {n_layers} layers at full width, "
           f"{model.n_params()} params, buckets "
           f"{[(s.kind, s.shape) for s in plan.buckets]}, k="
           f"{tc.sync.k_for(tc.sync.bucket_cols)}, batch {BATCH} x seq {SEQ}, "
-          f"wire {bucketed_message_bytes(tc.sync, plan)} B/step (dense "
+          f"wire {wire} B/step (dense "
           f"{bucketed_message_bytes(dense_sync, plan)} B)")
-    if sparse != [PATH_SHAPE]:
-        fail(f"sparse buckets {sparse}, expected [{PATH_SHAPE}]")
+    if sparse != [shape]:
+        fail(f"{arch}: sparse buckets {sparse}, expected [{shape}]")
+    if nbytes is not None and wire != nbytes:
+        fail(f"{arch} bucketed path: {wire} B/step, expected {nbytes}")
     _, counts, params, memory, batches = run_path(
-        "bucketed path", model, tc, dev,
+        f"{arch} bucketed path", model, tc, dev,
         {"fused_memsgd": STEPS * len(sparse)})
     profile_steps(model, tc, params, memory, batches, dev)
     return counts["fused_memsgd"]
 
 
-def phase_topk_preset(dev) -> int:
+def phase_topk_preset(dev, arch=ARCH, n_layers=N_LAYERS,
+                      nbytes=None) -> int:
     """The topk preset path (the reference's headline configuration) in a
     1-rank NCCL process group: the packed wire gathered through NCCL, the
     fused kernel's threshold branch once per step; then the same run on
-    the unpacked wire must give identical losses. Returns the threshold
-    branch's launches in the packed run."""
+    the unpacked wire must give identical losses. ``nbytes``: wire ->
+    expected bytes per step. Returns the threshold branch's launches in
+    the packed run."""
     import tempfile
 
     import torch.distributed as dist
@@ -834,7 +917,7 @@ def phase_topk_preset(dev) -> int:
     from repro_torch.core.distributed import SyncConfig, bucketed_message_bytes
     from repro_torch.launch.train import TrainConfig
 
-    model = full_model()
+    model = full_model(arch, n_layers)
     plan = make_plan(model.param_shapes())
     losses, launches = {}, 0
     with tempfile.TemporaryDirectory() as tmp:
@@ -843,16 +926,18 @@ def phase_topk_preset(dev) -> int:
         try:
             for wire in ("packed", "unpacked"):
                 sync = SyncConfig.preset("topk", ratio=TOPK_RATIO, wire=wire)
-                nbytes = bucketed_message_bytes(sync, plan)
-                print(f"topk preset path, {wire} wire: {ARCH} {N_LAYERS} "
+                got = bucketed_message_bytes(sync, plan)
+                print(f"topk preset path, {wire} wire: {arch} {n_layers} "
                       f"layers, 1-rank {dist.get_backend()} group, k="
-                      f"{sync.k_for(sync.bucket_cols)}, {nbytes} B/step")
-                if wire == "packed" and nbytes != TOPK_BYTES:
-                    fail(f"topk preset: {nbytes} B/step, expected "
-                         f"{TOPK_BYTES}")
-                tc = TrainConfig(optimizer="memsgd", eta=ETA, sync=sync)
+                      f"{sync.k_for(sync.bucket_cols)}, {got} B/step")
+                want = (nbytes or {}).get(wire)
+                if want is not None and got != want:
+                    fail(f"{arch} topk preset, {wire} wire: {got} B/step, "
+                         f"expected {want}")
+                tc = TrainConfig(optimizer="memsgd", eta=ETAS[arch],
+                                 sync=sync)
                 losses[wire], counts, params, memory, batches = run_path(
-                    f"topk preset path, {wire} wire", model, tc, dev,
+                    f"{arch} topk preset path, {wire} wire", model, tc, dev,
                     {"fused_memsgd_threshold": STEPS})
                 if wire == "packed":
                     launches = counts["fused_memsgd_threshold"]
@@ -862,46 +947,66 @@ def phase_topk_preset(dev) -> int:
         finally:
             dist.destroy_process_group()
     if losses["packed"] != losses["unpacked"]:
-        fail(f"the packed and unpacked wires' losses differ: {losses}")
-    print("topk preset path: the packed and unpacked wires' losses are "
-          "identical")
+        fail(f"{arch}: the packed and unpacked wires' losses differ: {losses}")
+    print(f"{arch} topk preset path: the packed and unpacked wires' losses "
+          "are identical")
     return launches
 
 
-def phase_leaf(dev, leaf_shapes) -> dict:
-    """The per-leaf path with each selection; returns each top-k kernel's
-    launches in its run."""
+def selection_launches(selection, calls) -> dict:
+    """Each top-k kernel's launches per per-leaf step under ``selection``
+    (the reference's ``_pick_selection``: argmax_onehot runs the loop up
+    to ``argmax_k_limit`` and the threshold above it, topk_scatter the
+    threshold)."""
+    from repro_torch.core.distributed import SyncConfig
+
+    limit = SyncConfig().argmax_k_limit
+    out = collections.Counter()
+    for (_, _, k), n in calls.items():
+        loop = selection == "argmax_onehot" and k <= limit
+        out["row_topk_loop" if loop else "row_topk_threshold"] += n
+    return dict(out)
+
+
+def phase_leaf(dev, calls, arch=ARCH, n_layers=N_LAYERS,
+               selections=("argmax_onehot", "topk_scatter"),
+               nbytes=None) -> dict:
+    """The per-leaf path of ``arch`` with each selection (``calls``: its
+    per-leaf (rows, C, k) calls); returns each top-k kernel's launches in
+    the selections' runs."""
     from repro_torch.core.distributed import SyncConfig, message_bytes
     from repro_torch.launch.sharding import sync_col_axes
     from repro_torch.launch.train import TrainConfig
 
-    model = full_model()
-    n_leaves = sum(leaf_shapes.values())
+    model = full_model(arch, n_layers)
     shapes = model.param_shapes()
     cols = sync_col_axes(shapes)
-    print(f"per-leaf path: {ARCH} {N_LAYERS} layers at full width, "
-          f"{n_leaves} sparse leaves {dict(leaf_shapes)} (rows, C), k="
-          f"{SyncConfig(ratio=RATIO).k_for(2560)}, batch {BATCH} x seq "
-          f"{SEQ}, wire {message_bytes(SyncConfig(ratio=RATIO), shapes, cols)}"
-          f" B/step (dense "
+    wire = message_bytes(SyncConfig(ratio=RATIO), shapes, cols)
+    print(f"per-leaf path: {arch} {n_layers} layers at full width, "
+          f"{sum(calls.values())} sparse leaves {dict(calls)} (rows, C, k), "
+          f"batch {BATCH} x seq {SEQ}, wire {wire} B/step (dense "
           f"{message_bytes(SyncConfig(strategy='dense'), shapes, cols)} B)")
+    if nbytes is not None and wire != nbytes:
+        fail(f"{arch} per-leaf path: {wire} B/step, expected {nbytes}")
     launches, losses = {}, {}
-    for selection, kernel in (("argmax_onehot", "row_topk_loop"),
-                              ("topk_scatter", "row_topk_threshold")):
-        tc = TrainConfig(optimizer="memsgd", eta=ETA,
+    for selection in selections:
+        tc = TrainConfig(optimizer="memsgd", eta=ETAS[arch],
                          sync=SyncConfig(ratio=RATIO, selection=selection))
-        label = f"per-leaf path, selection={selection}"
+        expect = {name: STEPS * n for name, n in
+                  selection_launches(selection, calls).items()}
         losses[selection], counts, params, memory, batches = run_path(
-            label, model, tc, dev, {kernel: STEPS * n_leaves})
-        launches[kernel] = counts[kernel]
-        if selection == "argmax_onehot":
+            f"{arch} per-leaf path, selection={selection}", model, tc, dev,
+            expect)
+        launches.update({name: counts[name] for name in expect})
+        if arch == ARCH and selection == "argmax_onehot":
             params, memory = step_u_topk(model, tc, params, memory, batches)
         profile_steps(model, tc, params, memory, batches, dev)
         del params, memory, batches
         torch.cuda.empty_cache()
-    if losses["argmax_onehot"] != losses["topk_scatter"]:
-        fail(f"the two selections' losses differ: {losses}")
-    print("per-leaf path: the two selections' losses are identical")
+    if len(set(map(tuple, losses.values()))) != 1:
+        fail(f"{arch}: the selections' losses differ: {losses}")
+    if len(losses) > 1:
+        print(f"{arch} per-leaf path: the selections' losses are identical")
     return launches
 
 
@@ -998,10 +1103,10 @@ def profile_steps(model, tc, params, memory, batches, dev, n: int = 5) -> None:
 
 
 def phase_small(dev) -> None:
-    """One float32 step of the smoke config on the card and on the CPU
-    (plain versions) from the same params and batch must agree, on the
-    bucketed path, the topk preset (the threshold branch, packed wire) and
-    the per-leaf path: loss to 1e-5 relative, the applied
+    """One float32 step of each architecture's smoke config on the card
+    and on the CPU (plain versions) from the same params and batch must
+    agree, on the bucketed path, the topk preset (the threshold branch,
+    packed wire) and the per-leaf path: loss to 1e-5 relative, the applied
     update to 1e-3 relative L2 (matrix products sum in another order on
     the card, which can flip a rare near-tie in the selection)."""
     from repro_torch.configs import get_smoke_config
@@ -1012,52 +1117,66 @@ def phase_small(dev) -> None:
     from repro_torch.models import build_model
     from repro_torch.utils.tree import tree_leaves, tree_map
 
-    cfg = get_smoke_config(ARCH).replace(compute_dtype="float32")
-    model = build_model(cfg)
-    batch = next(token_batches(cfg.vocab_size, 4, 64, seed=1))
-    host = model.init(seed=0, device="cpu")
     paths = {"bucketed": SyncConfig(ratio=RATIO, bucketed=True),
              "topk preset": SyncConfig.preset("topk", ratio=TOPK_RATIO),
              "per-leaf": SyncConfig(ratio=RATIO)}
-    for path, sync in paths.items():
-        tc = TrainConfig(eta=ETA, sync=sync)
-        out = {}
-        for d in (torch.device("cpu"), dev):
-            params, memory, opt, count = init_train_state(
-                model, tc, device=d,
-                params=tree_map(lambda t: t.to(d, copy=True), host))
-            before = [p.clone() for p in tree_leaves(params)]
-            step = make_train_step(model, tc)
-            params, memory, opt, count, met = step(
-                params, memory, opt, count,
-                {k: torch.as_tensor(v, device=d) for k, v in batch.items()})
-            upd = torch.cat([(a - b).reshape(-1).cpu() for a, b in
-                             zip(before, tree_leaves(params))])
-            out[d.type] = (float(met["loss"]), upd)
-        (l_cpu, u_cpu), (l_gpu, u_gpu) = out["cpu"], out["cuda"]
-        rel_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
-        rel_upd = float((u_gpu - u_cpu).norm() / u_cpu.norm())
-        print(f"small input, {path} path: loss card {l_gpu} vs cpu {l_cpu} "
-              f"(rel {rel_loss:.2e}), update rel L2 {rel_upd:.2e}")
-        if rel_loss > 1e-5 or rel_upd > 1e-3:
-            fail(f"the card's {path} step disagrees with the CPU's on the "
-                 "small input")
+    for arch in (ARCH, RWKV_ARCH):
+        cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+        model = build_model(cfg)
+        batch = next(token_batches(cfg.vocab_size, 4, 64, seed=1))
+        host = model.init(seed=0, device="cpu")
+        for path, sync in paths.items():
+            tc = TrainConfig(eta=ETAS[arch], sync=sync)
+            out = {}
+            for d in (torch.device("cpu"), dev):
+                params, memory, opt, count = init_train_state(
+                    model, tc, device=d,
+                    params=tree_map(lambda t: t.to(d, copy=True), host))
+                before = [p.clone() for p in tree_leaves(params)]
+                step = make_train_step(model, tc)
+                params, memory, opt, count, met = step(
+                    params, memory, opt, count,
+                    {k: torch.as_tensor(v, device=d)
+                     for k, v in batch.items()})
+                upd = torch.cat([(a - b).reshape(-1).cpu() for a, b in
+                                 zip(before, tree_leaves(params))])
+                out[d.type] = (float(met["loss"]), upd)
+            (l_cpu, u_cpu), (l_gpu, u_gpu) = out["cpu"], out["cuda"]
+            rel_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+            rel_upd = float((u_gpu - u_cpu).norm() / u_cpu.norm())
+            print(f"small input, {arch} {path} path: loss card {l_gpu} vs "
+                  f"cpu {l_cpu} (rel {rel_loss:.2e}), update rel L2 "
+                  f"{rel_upd:.2e}")
+            if rel_loss > 1e-5 or rel_upd > 1e-3:
+                fail(f"the card's {arch} {path} step disagrees with the "
+                     "CPU's on the small input")
 
 
 def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    leaf_shapes = leaf_row_shapes()
+    leaf_shapes = {ARCH: leaf_row_shapes(),
+                   RWKV_ARCH: leaf_row_shapes(RWKV_ARCH, RWKV_LAYERS)}
     kernels = ([phase_kernel(dev), phase_fused_threshold(dev)]
                + phase_topk(dev, leaf_shapes))
     phase_cutover(dev)
     launches = {"fused_memsgd": phase_bucketed(dev),
                 "fused_memsgd_threshold": phase_topk_preset(dev)}
-    launches.update(phase_leaf(dev, leaf_shapes))
+    launches.update(phase_leaf(dev, leaf_shapes[ARCH]))
+    rwkv = {"fused_memsgd": phase_bucketed(
+        dev, RWKV_ARCH, RWKV_LAYERS, RWKV_SHAPE, RWKV_BYTES["bucketed"])}
+    rwkv["fused_memsgd_threshold"] = phase_topk_preset(
+        dev, RWKV_ARCH, RWKV_LAYERS,
+        {"packed": RWKV_BYTES["topk packed"],
+         "unpacked": RWKV_BYTES["topk unpacked"]})
+    rwkv.update(phase_leaf(dev, leaf_shapes[RWKV_ARCH], RWKV_ARCH,
+                           RWKV_LAYERS, ("argmax_onehot",),
+                           RWKV_BYTES["per-leaf"]))
     phase_small(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    print(json.dumps({"launches_by_arch": {ARCH: launches, RWKV_ARCH: rwkv}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,9 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, RWKVConfig
 
-ARCH_IDS = ("qwen3-4b",)
+ARCH_IDS = ("qwen3-4b", "rwkv6-3b")
 
 
 def _module(arch_id: str):
@@ -28,4 +28,5 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).smoke_config()
 
 
-__all__ = ["ModelConfig", "ARCH_IDS", "get_config", "get_smoke_config"]
+__all__ = ["ModelConfig", "RWKVConfig", "ARCH_IDS", "get_config",
+           "get_smoke_config"]

@@ -4,8 +4,8 @@
 One ``ModelConfig`` per architecture lives in
 ``repro_torch/configs/<arch_id>.py``; each exposes ``config()`` (full
 size) and ``smoke_config()`` (reduced: 2 layers, narrow widths, runnable
-on a CPU). The port runs the dense decoder family only, so the reference's
-MoE, RWKV, hybrid, prefix-embedding and remat fields are absent.
+on a CPU). The port runs the dense decoder and the RWKV families, so the
+reference's MoE, hybrid, prefix-embedding and remat fields are absent.
 """
 from __future__ import annotations
 
@@ -14,9 +14,17 @@ from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    lora_rank_decay: int = 64  # low-rank size for data-dependent decay
+    lora_rank_mix: int = 32  # low-rank size for ddlerp token-shift
+    chunk_size: int = 128  # chunkwise-parallel scan chunk
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str  # dense (the one family the port runs)
+    family: str  # dense | rwkv (the families the port runs)
     n_layers: int
     d_model: int
     n_heads: int
@@ -32,6 +40,7 @@ class ModelConfig:
     # norms
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    rwkv: Optional[RWKVConfig] = None
     # numerics
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

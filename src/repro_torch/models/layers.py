@@ -1,4 +1,4 @@
-"""Shared layers of the dense decoder (port of ``repro.models.layers``).
+"""Shared layers of the port's models (port of ``repro.models.layers``).
 
 Parameters are nested dicts of tensors, in the reference's layouts: dense
 weights are (d_in, d_out) and applied as ``x @ W``. Functions take
@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.utils.tree import tree_flatten
 
 # the direct attention path materializes (B, H, S, T) logits; the
 # reference switches to blocked attention above this many positions
@@ -37,6 +39,16 @@ def embed_init(shape, dtype, device, generator=None) -> torch.Tensor:
     return w.mul_(0.02).to(dtype)
 
 
+def unstack_layers(blocks: dict, n: int) -> list:
+    """The stacked block tree (leading L axis on every leaf) as ``n``
+    per-layer trees. ``torch.unbind`` takes every layer's view in one op,
+    so the backward stacks the layer gradients once instead of adding
+    ``n`` zero-padded slices."""
+    leaves, treedef = tree_flatten(blocks)
+    per_leaf = [torch.unbind(x) for x in leaves]
+    return [treedef.unflatten([u[i] for u in per_leaf]) for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -49,6 +61,17 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
     return (xf * rstd).to(x.dtype) * scale.to(x.dtype)
+
+
+def groupnorm_heads(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """Per-head group norm of the RWKV wkv output. x: (..., H, hd); float32
+    statistics (population variance), output in the input dtype."""
+    xf = x.to(torch.float32)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    xc = xf - mean
+    var = torch.mean(torch.square(xc), dim=-1, keepdim=True)
+    return (xc * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

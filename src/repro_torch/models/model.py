@@ -1,5 +1,5 @@
-"""Model bundle: init, forward, loss (port of ``repro.models.model`` for
-the dense family).
+"""Model bundle: family dispatch, init, forward, loss (port of
+``repro.models.model`` for the dense and RWKV families).
 
     model = build_model(cfg)
     params = model.init(seed=0, device="cuda")
@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import rwkv, transformer
 from repro_torch.utils.platform import resolve_device
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -40,9 +40,19 @@ def _xent(cfg, logits: torch.Tensor, labels: torch.Tensor
     return torch.sum(per_tok * mask) / n, n
 
 
+_FAMILIES = {
+    "dense": transformer,
+    "rwkv": rwkv,
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
+
+    @property
+    def _mod(self):
+        return _FAMILIES[self.cfg.family]
 
     def _cast(self, params):
         """Float params in the compute dtype (the float32 masters stay with
@@ -59,17 +69,17 @@ class Model:
         device = resolve_device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        return transformer.init_params(self.cfg, device=device, generator=gen)
+        return self._mod.init_params(self.cfg, device=device, generator=gen)
 
     def param_shapes(self) -> dict:
         """Parameter tree on the ``meta`` device: shapes and dtypes only."""
-        return transformer.init_params(self.cfg, device="meta")
+        return self._mod.init_params(self.cfg, device="meta")
 
     # -- training path --------------------------------------------------------
 
     def forward(self, params, batch, window: Optional[int] = None):
-        return transformer.forward(self._cast(params), self.cfg,
-                                   batch["tokens"], window=window)
+        return self._mod.forward(self._cast(params), self.cfg,
+                                 batch["tokens"], window=window)
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
         logits, aux = self.forward(params, batch)
@@ -81,7 +91,8 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (dense only)")
+            f"model family {cfg.family!r} is not ported yet; ported: "
+            f"{sorted(_FAMILIES)}")
     return Model(cfg)

@@ -12,7 +12,6 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.utils.tree import tree_flatten
 
 
 def init_params(cfg, device="cpu", generator: Optional[torch.Generator] = None
@@ -37,15 +36,6 @@ def init_params(cfg, device="cpu", generator: Optional[torch.Generator] = None
     return p
 
 
-def _unstack(blocks: dict, n: int) -> list:
-    """The stacked block tree as ``n`` per-layer trees. ``torch.unbind``
-    takes every layer's view in one op, so the backward stacks the layer
-    gradients once instead of adding ``n`` zero-padded slices."""
-    leaves, treedef = tree_flatten(blocks)
-    per_leaf = [torch.unbind(x) for x in leaves]
-    return [treedef.unflatten([u[i] for u in per_leaf]) for i in range(n)]
-
-
 def _block_apply(cfg, p, x, positions, window):
     h = x + L.attention(p["attn"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                         positions, window)
@@ -61,7 +51,7 @@ def forward(params: dict, cfg, tokens: torch.Tensor,
     x = params["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    for blk in _unstack(params["blocks"], cfg.n_layers):
+    for blk in L.unstack_layers(params["blocks"], cfg.n_layers):
         x = _block_apply(cfg, blk, x, positions, window)
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     if cfg.tie_embeddings:

@@ -138,11 +138,16 @@ def test_fused_threshold_branch_refuses_a_row_over_shared_memory():
     fused_memsgd_cuda(m, m, 0.1, 20, "loop")  # the loop branch holds it
 
 
-@pytest.mark.parametrize("k,branch", [(12, "loop"), (13, "threshold"),
-                                      (20, "threshold")])
-def test_fused_update_picks_the_branch_by_the_cutover(k, branch):
+@pytest.mark.parametrize("shape,k,branch", [
+    ((8, 1024), 12, "loop"), ((8, 1024), 13, "threshold"),
+    ((8, 1024), 20, "threshold"),
+    # rows of rwkv6-3b's (1002500, 1024) bucket at the bucketed path's k
+    # and the topk preset's
+    ((4096, 1024), 10, "loop"), ((4096, 1024), 20, "threshold"),
+])
+def test_fused_update_picks_the_branch_by_the_cutover(shape, k, branch):
     _need_card()
-    m, g = _inputs((8, 1024), 5, "normal")
+    m, g = _inputs(shape, 5, "normal")
     before = dict(SELECTION_LAUNCHES)
     got = ops.fused_memsgd_update(m, g, 0.5, k)
     assert {n: SELECTION_LAUNCHES[n] - before[n] for n in before} == {
@@ -196,6 +201,24 @@ def test_topk_kernels_on_the_design_edges(kind, selection):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
+@pytest.mark.parametrize("selection", ["loop", "threshold"])
+@pytest.mark.parametrize("shape,k", [
+    ((4096, 32), 1),    # rwkv6-3b's mix_w2 rows
+    ((4096, 64), 1),    # bonus, gn, decay_w2
+    ((2048, 160), 2),   # mix_w1
+    ((64, 8960), 90),   # chan/wv (argmax_onehot takes the threshold)
+])
+def test_topk_kernels_on_the_rwkv_row_shapes(shape, k, selection):
+    """The per-leaf (C, k) of rwkv6-3b at full width that qwen3-4b never
+    gives the kernels: rows narrower than a warp's copy, and k > 64."""
+    _need_card()
+    x, _ = _inputs(shape, 7, "normal")
+    wrapper = {"loop": row_topk_loop_cuda,
+               "threshold": row_topk_threshold_cuda}[selection]
+    for a, b in zip(wrapper(x, k), row_topk_ref(x, k)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
 def test_topk_kernels_on_unaligned_rows():
     _need_card()
     flat = torch.from_numpy(
@@ -239,11 +262,11 @@ def test_topk_kernels_reject_bfloat16_on_the_card():
         row_topk_threshold_cuda(x, 4)
 
 
-def _card_against_cpu(bucketed):
+def _card_against_cpu(bucketed, arch="qwen3-4b"):
     """One float32 smoke step from the same params and batch on the CPU
     and on the card: loss to 1e-5 relative, applied update to 1e-3
     relative L2. Returns the kernel launches of each device's step."""
-    model = build_model(get_smoke_config("qwen3-4b").replace(
+    model = build_model(get_smoke_config(arch).replace(
         compute_dtype="float32"))
     tc = TrainConfig(eta=0.5, sync=SyncConfig(ratio=0.01, bucketed=bucketed))
     batch = next(token_batches(512, 4, 64, seed=1))
@@ -287,6 +310,23 @@ def test_per_leaf_step_on_the_card_matches_the_cpu():
     # nine sparse leaves, k = 3 each: the loop kernel once per leaf
     assert launched["cuda"] == {"fused_memsgd": 0, "row_topk_loop": 9,
                                 "row_topk_threshold": 0}
+
+
+@pytest.mark.parametrize("bucketed", [True, False])
+def test_rwkv_step_on_the_card_matches_the_cpu(bucketed):
+    """rwkv6-3b's smoke step: one fused launch on the bucketed path, one
+    top-k launch per sparse leaf on the per-leaf path (every k <= 64: the
+    loop)."""
+    _need_card()
+    launched = _card_against_cpu(bucketed, arch="rwkv6-3b")
+    assert not any(launched["cpu"].values())
+    shapes = build_model(get_smoke_config("rwkv6-3b")).param_shapes()
+    sparse = sum(p.numel() >= SyncConfig().dense_below
+                 for p in tree_leaves(shapes))
+    assert launched["cuda"] == {
+        "fused_memsgd": int(bucketed),
+        "row_topk_loop": 0 if bucketed else sparse,
+        "row_topk_threshold": 0}
 
 
 def test_cli_trains_the_per_leaf_path_on_the_card():
