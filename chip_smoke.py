@@ -61,6 +61,36 @@ Phases, each of which fails the run with a non-zero exit:
 7. A small input: one train step of each architecture's smoke config in
    float32 on the card and on the CPU (the plain versions) must agree, on
    the bucketed path, the topk preset and the per-leaf path.
+8. The single-row regime (after phase 3's cutover sweep): the top-k of
+   one wide row, as ``compression.top_k`` sends a flat vector, and of
+   ``blockwise_top_k``'s (nb, block) rows. ``row_topk`` (the kernel its
+   "auto" method picks), and both kernels where k <= 64, bitwise against
+   the plain version on random, tie-heavy and all-zero rows at (1, 2000)
+   k = 1, 2, 3 (epsilon), (1, 47236) k = 10, 20, 30 (rcv1), (47, 1024)
+   k = 2 (blockwise over rcv1's d) and (1, 1048576) k = 1024 (pairs
+   ordered through ``write_selected``); each timed beside the plain
+   version, the library call and the bound.
+9. The two remaining optimizer modes of the train driver on qwen3-4b
+   (after its per-leaf path): ``memsgd_momentum`` (momentum 0.9, eta
+   0.05) and ``adam_compressed`` (eta 1e-3), 4 steps each on the per-leaf
+   and the bucketed path, checked as the paths above (finite losses from
+   near ln V, the last below the first, the kernels' launches, peak
+   memory), the bucketed runs profiled.
+10. The paper's logistic regression (Section 4, after the rwkv6-3b
+   paths): ``make_epsilon_like(n=400000, d=2000)`` and
+   ``make_rcv1_like(n=20000, d=47236)`` in float32 on the card, 80000
+   (epsilon) or 20000 (rcv1) single-sample steps of
+   ``memsgd_flat(top_k(k))`` per run at eta_t =
+   2 / (lam (t + a)), a = d/k (epsilon, k = 1, 2, 3) and 10 d/k (rcv1,
+   k = 10, 20, 30), and the SGD baseline (``identity``, a = 1), through
+   ``examples/torch_logreg_paper.run_memsgd_flat`` with the weighted
+   average; the sample indices drawn on the host before the loop. Each
+   run's losses must be finite, the average's loss at T below ln 2 and
+   below its loss at T/10; its loss after 1000 steps (the SGD baseline:
+   100) must equal the same steps on the CPU (the plain versions) within
+   rtol 1e-3. Prints
+   each run's loss beside the baseline's, its us/step and its kernel
+   launches per step.
 
 Phase 3 runs the kernels at both architectures' shapes: the fused kernel
 at each bucket, the top-k kernels at every per-leaf (rows, C, k) of both,
@@ -68,7 +98,9 @@ timed per per-leaf step of each and, for rwkv6-3b, over its rows narrower
 than 1024 alone.
 
 Prints each architecture's launches per kernel on a
-``{"launches_by_arch": ...}`` line, then a ``{"kernels": [...]}`` line
+``{"launches_by_arch": ...}`` line, the optimizer modes' and the logistic
+regression runs' on a ``{"launches_by_path": ...}`` line, then a
+``{"kernels": [...]}`` line
 (the main path's, qwen3-4b's, shapes and launches), then the card's name
 and power limit, then the result line ``{"ok": true, "device": {...}}``
 last.
@@ -116,6 +148,32 @@ NARROW_C = 1024
 KERNEL_SOURCES = ("fused_memsgd", "topk_select")
 TOPK_KERNELS = ("row_topk_loop", "row_topk_threshold")
 SWEEP_KS = (1, 2, 4, 8, 12, 14, 16, 20, 24, 26, 32, 33, 48, 64)
+# the single-row regime: (rows, C, k) of compression.top_k's (1, d) rows
+# at the logistic regression's widths, blockwise_top_k's (nb, 1024) rows
+# over rcv1's d, and one bounded large-k row
+SINGLE_ROW_CASES = ((1, 2000, 1), (1, 2000, 2), (1, 2000, 3),
+                    (1, 47236, 10), (1, 47236, 20), (1, 47236, 30),
+                    (47, 1024, 2), (1, 1 << 20, 1024))
+# the optimizer modes and their stepsizes: momentum 0.9 at eta 0.05 (an
+# effective step eta / (1 - 0.9) = 0.5, the memsgd paths'); Adam at 1e-3:
+# the reference's smoke-size rate 3e-3 (tests/test_system.py) moves each
+# selected weight by 3e-3 a step, 15% of a full-width weight's scale
+# (1/sqrt(2560)), and the bucketed run rose to 13.99 at its fourth step
+OPT_MODES = {"memsgd_momentum": 0.05, "adam_compressed": 1e-3}
+# the paper's logistic regression: (name, generator kwargs, ks, shift
+# factor, steps T per run) at the examples' --full sizes. epsilon's lam
+# = 1/400000 makes its first steps large (eta_0 = 2n/a), and its average
+# falls below ln 2 only after ~60000 steps; rcv1's falls within 20000.
+# The card is compared with the CPU over the first steps of each run,
+# 1000 for Mem-SGD, 100 for the SGD baseline: its a = 1 makes the first
+# steps 2n / (t + 1) long, so that a sample whose margin lies within
+# float32 rounding of 0 flips its whole gradient. Another summation order
+# of the gradient's dot product alone moves epsilon's baseline by ~3e-3
+# at 2000 steps on the CPU (tools/logreg_rounding_cpu.py, which also gives
+# the losses at the card's step sizes), and the card's by 5.3e-3 at 1000.
+LOGREG_SETS = (("epsilon", dict(n=400_000, d=2_000), (1, 2, 3), 1.0, 80_000),
+               ("rcv1", dict(n=20_000, d=47_236), (10, 20, 30), 10.0, 20_000))
+LOGREG_CPU_STEPS = {"memsgd": 1_000, "sgd": 100}
 
 
 def fail(msg: str) -> None:
@@ -1066,7 +1124,8 @@ def step_u_topk(model, tc, params, memory, batches):
     return params, memory
 
 
-def profile_steps(model, tc, params, memory, batches, dev, n: int = 5) -> None:
+def profile_steps(model, tc, params, memory, batches, dev, n: int = 5,
+                  opt=()) -> None:
     """Where a path's step time goes: torch.profiler over ``n`` steady
     steps continuing the run above (launches here are not counted).
     Prints the wall time per step, the device's busy time per step
@@ -1078,7 +1137,7 @@ def profile_steps(model, tc, params, memory, batches, dev, n: int = 5) -> None:
     from repro_torch.launch.train import make_train_step
 
     step = make_train_step(model, tc)
-    opt, count = (), STEPS
+    count = STEPS
     it = iter(batches)
     params, memory, opt, count, _ = step(params, memory, opt, count, next(it))
     torch.cuda.synchronize()
@@ -1100,6 +1159,192 @@ def profile_steps(model, tc, params, memory, batches, dev, n: int = 5) -> None:
     for e in top:
         print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms/step "
               f"x{e.count // n:<4d} {e.key[:150]}")
+
+
+def single_row_inputs(dev, R, C, seed):
+    """(kind, x) on the card, made from a seed: random, tie-heavy (halves)
+    and all-zero rows with signed zeros."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn((R, C), generator=gen, device=dev)
+    yield "random", x
+    yield "tie-heavy", torch.round(x * 2) / 2
+    z = torch.zeros((R, C), device=dev)
+    z[:, 1::3] = -0.0
+    yield "all-zero", z
+
+
+def phase_single_row(dev) -> list:
+    """The single-row regime (SINGLE_ROW_CASES): ``row_topk`` (its "auto"
+    method, as ``compression.top_k`` calls it) and, where k <= 64, both
+    kernels bitwise against the plain version on each kind of row; then
+    the picked kernel timed on the random row beside the plain version,
+    the library call and the bound. Returns one record per case."""
+    from repro_torch.kernels.ops import row_topk
+    from repro_torch.kernels.ref import row_topk_ref
+    from repro_torch.utils.platform import topk_loop_cutover
+
+    fns = topk_wrappers()
+    bad, out = [], []
+    for i, (R, C, k) in enumerate(SINGLE_ROW_CASES):
+        picked = ("row_topk_threshold" if k > topk_loop_cutover("cuda")
+                  else "row_topk_loop")
+        for kind, x in single_row_inputs(dev, R, C, 40 + i):
+            want = row_topk_ref(x, k)
+            got = {f"row_topk -> {picked}": row_topk(x, k)}
+            if k <= 64:
+                got.update({name: fn(x, k) for name, fn in fns.items()})
+            torch.cuda.synchronize()
+            verdicts = []
+            for name, o in got.items():
+                ok = all(same_bits(a, b) for a, b in zip(o, want))
+                if not ok:
+                    bad.append(f"{name} ({R},{C}) k={k} {kind}")
+                verdicts.append(f"{name} "
+                                f"{'bitwise equal' if ok else 'MISMATCH'}")
+            print(f"  single row ({R},{C}) k={k} {kind}: "
+                  f"{'; '.join(verdicts)}")
+            del x, got, want
+        _, x = next(single_row_inputs(dev, R, C, 40 + i))
+        ms = cuda_ms(lambda: row_topk(x, k), iters=20, warmup=2)
+        plain_ms = cuda_ms(lambda: row_topk_ref(x, k), iters=2)
+        library_ms = cuda_ms(lambda: topk_library(x, k), iters=20, warmup=2)
+        nbytes = R * C * 4 + R * k * 8
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = R * C / F32_FLOPS_PER_S * 1e3
+        rec = {"shape": [R, C], "k": k, "kernel": picked, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": max(byte_ms, op_ms),
+               "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+        print(f"  single row ({R},{C}) k={k}: {picked} {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+              f"{rec['bound_ms']:.6f} ms ({nbytes} bytes); "
+              f"{plan_text(picked, R, C)}")
+        out.append(rec)
+        del x
+    if bad:
+        fail(f"the single-row top-k differs from its plain version on {bad}")
+    print(f"single-row regime: {len(SINGLE_ROW_CASES)} shapes x 3 kinds "
+          "bitwise equal")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_opt_modes(dev, calls) -> dict:
+    """memsgd_momentum and adam_compressed (OPT_MODES) on qwen3-4b at full
+    width, per-leaf (``calls``: its per-leaf (rows, C, k)) and bucketed,
+    through ``train()`` as the memsgd paths run; the bucketed runs
+    profiled (from a zero optimizer state). Returns each run's launches."""
+    from repro_torch.core.distributed import SyncConfig
+    from repro_torch.launch.train import TrainConfig, init_opt_state
+
+    model = full_model()
+    out = {}
+    for mode, eta in OPT_MODES.items():
+        for path in ("per-leaf", "bucketed"):
+            bucketed = path == "bucketed"
+            tc = TrainConfig(optimizer=mode, eta=eta, sync=SyncConfig(
+                ratio=RATIO, bucketed=bucketed))
+            expect = ({"fused_memsgd": STEPS} if bucketed else
+                      {name: STEPS * n for name, n in selection_launches(
+                          "argmax_onehot", calls).items()})
+            _, counts, params, memory, batches = run_path(
+                f"{ARCH} {mode} (eta {eta}), {path} path", model, tc, dev,
+                expect)
+            out[f"{mode} {path}"] = {name: counts[name] for name in expect}
+            if bucketed:
+                profile_steps(model, tc, params, memory, batches, dev,
+                              opt=init_opt_state(tc, params))
+            del params, memory, batches
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_logreg(dev) -> dict:
+    """The paper's logistic regression (LOGREG_SETS) through
+    ``examples/torch_logreg_paper.run_memsgd_flat``: each run on the card
+    with every launch count zeroed just before and read just after, then
+    its first steps on the CPU from the same indices (LOGREG_CPU_STEPS).
+    Returns each run's launches."""
+    import importlib.util
+
+    import numpy as np
+
+    from repro_torch.core.compression import identity, top_k
+    from repro_torch.data import make_epsilon_like, make_rcv1_like
+    from repro_torch.utils.platform import topk_loop_cutover
+
+    path = os.path.join(ROOT, "examples", "torch_logreg_paper.py")
+    spec = importlib.util.spec_from_file_location("torch_logreg_paper", path)
+    example = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = example
+    spec.loader.exec_module(example)
+    run_memsgd_flat = example.run_memsgd_flat
+
+    makers = {"epsilon": make_epsilon_like, "rcv1": make_rcv1_like}
+    launches = {}
+    for name, kw, ks, factor, T in LOGREG_SETS:
+        t0 = time.perf_counter()
+        data = makers[name](**kw)
+        gen_s = time.perf_counter() - t0
+        lam, n, d = data.lam, data.n, data.d
+        A_cpu = torch.from_numpy(data.A.astype(np.float32))
+        b_cpu = torch.from_numpy(data.b.astype(np.float32))
+        del data
+        A, b = A_cpu.to(dev), b_cpu.to(dev)
+        idx = example.sample_indices(n, T)
+        print(f"logistic regression {name}: n={n} d={d} lam=1/n, "
+              f"generated on the host in {gen_s:.2f} s, A {A.numel() * 4} "
+              f"B float32 on the card; T={T}")
+        cmp_steps = sorted(LOGREG_CPU_STEPS.values())
+        evals = (*cmp_steps, T // 10, T)
+        # (label, compressor, shift a, the top-k kernel it launches)
+        runs = [("sgd", identity(), 1.0, None)] + [
+            (f"top-{k}", top_k(k), factor * d / k,
+             "row_topk_threshold" if k > topk_loop_cutover("cuda")
+             else "row_topk_loop") for k in ks]
+        base = None
+        for label, comp, a, kernel in runs:
+            held = LOGREG_CPU_STEPS["sgd" if kernel is None else "memsgd"]
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            _, losses = run_memsgd_flat(A, b, lam, comp, a, idx, evals=evals)
+            torch.cuda.synchronize()
+            us = (time.perf_counter() - t0) / T * 1e6
+            counts = launch_counts()
+            launches[f"{name} {label}"] = counts
+            got = {t: float(v) for t, v in losses.items()}
+            _, cpu = run_memsgd_flat(A_cpu, b_cpu, lam, comp, a,
+                                     idx[:max(cmp_steps)], evals=cmp_steps)
+            rels = {t: abs(got[t] - float(cpu[t])) / abs(float(cpu[t]))
+                    for t in cmp_steps}
+            rel = rels[held]
+            base = got[T] if base is None else base
+            per_step = {k_: v / T for k_, v in counts.items() if v}
+            print(f"  {name} {label} (a={a:.1f}): loss of the average at "
+                  f"{T // 10} {got[T // 10]:.6f}, at {T} {got[T]:.6f} "
+                  f"(sgd {base:.6f}); {us:.2f} us/step; launches per step "
+                  f"{per_step}; card vs cpu: " + ", ".join(
+                      f"after {t} steps {got[t]:.7f} vs {float(cpu[t]):.7f}"
+                      f" (rel {rels[t]:.2e})" for t in cmp_steps)
+                  + f"; held at {held}")
+            if not all(math.isfinite(v) for v in got.values()):
+                fail(f"logreg {name} {label}: non-finite loss {got}")
+            if not got[T] < min(math.log(2), got[T // 10]):
+                fail(f"logreg {name} {label}: the average's loss {got[T]} "
+                     f"at {T} is not below ln 2 and its loss "
+                     f"{got[T // 10]} at {T // 10}")
+            if rel > 1e-3:
+                fail(f"logreg {name} {label}: the card's loss after {held} "
+                     f"steps differs from the CPU's by {rel:.2e} relative")
+            want = {k_: T if k_ == kernel else 0 for k_ in counts}
+            if counts != want:
+                fail(f"logreg {name} {label}: launches {counts}, expected "
+                     f"{want}")
+        del A, b, A_cpu, b_cpu
+        torch.cuda.empty_cache()
+    return launches
 
 
 def phase_small(dev) -> None:
@@ -1161,9 +1406,11 @@ def main() -> None:
     kernels = ([phase_kernel(dev), phase_fused_threshold(dev)]
                + phase_topk(dev, leaf_shapes))
     phase_cutover(dev)
+    phase_single_row(dev)
     launches = {"fused_memsgd": phase_bucketed(dev),
                 "fused_memsgd_threshold": phase_topk_preset(dev)}
     launches.update(phase_leaf(dev, leaf_shapes[ARCH]))
+    by_path = {"optimizer modes": phase_opt_modes(dev, leaf_shapes[ARCH])}
     rwkv = {"fused_memsgd": phase_bucketed(
         dev, RWKV_ARCH, RWKV_LAYERS, RWKV_SHAPE, RWKV_BYTES["bucketed"])}
     rwkv["fused_memsgd_threshold"] = phase_topk_preset(
@@ -1173,10 +1420,12 @@ def main() -> None:
     rwkv.update(phase_leaf(dev, leaf_shapes[RWKV_ARCH], RWKV_ARCH,
                            RWKV_LAYERS, ("argmax_onehot",),
                            RWKV_BYTES["per-leaf"]))
+    by_path["logistic regression"] = phase_logreg(dev)
     phase_small(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"launches_by_arch": {ARCH: launches, RWKV_ARCH: rwkv}}))
+    print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,10 @@ The reference holds each worker's memory behind a leading worker axis:
 (W, rows, cols) per bucket on the bucketed path, (W,) + shape per leaf on
 the per-leaf path. A worker of the port holds only its own memory, so
 these take worker 0's and put back an axis of 1.
+
+The train driver's optimizer state carries over leafwise too: () for
+``memsgd`` and ``dense``, a param-shaped float32 tree for
+``memsgd_momentum``, {"mu": tree, "nu": tree} for ``adam_compressed``.
 """
 from __future__ import annotations
 
@@ -64,3 +68,12 @@ def memory_to_jax(memory):
     if isinstance(memory, dict):
         return tree_map(lambda t: _to_numpy(t)[None], memory)
     return tuple(_to_numpy(b)[None] for b in memory)
+
+
+def opt_from_jax(opt, device="cpu"):
+    """The reference driver's optimizer state (numpy leaves) as the
+    port's on ``device``: () stays (), a momentum tree or Adam's
+    {"mu", "nu"} trees are copied leafwise."""
+    if isinstance(opt, dict):
+        return tree_map(lambda a: _to_torch(a, device), opt)
+    return ()

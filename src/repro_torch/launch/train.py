@@ -31,11 +31,20 @@ device. The step's loss is the mean over the workers (the reference's
 ``_mean_metrics``).
 
 Optimizer modes:
-  * ``memsgd`` — paper Algorithm 1/2: update = comp_k(m + eta*g),
+  * ``memsgd``       — paper Algorithm 1/2: update = comp_k(m + eta*g),
     params -= update. eta consumed at memory insertion.
-  * ``dense``  — uncompressed baseline (the sync's dense strategy).
-The reference's ``memsgd_momentum`` and ``adam_compressed`` are not
-ported and raise.
+  * ``memsgd_momentum`` — beyond-paper: heavy-ball momentum (``momentum``)
+    applied to the synced sparse update: v = momentum*v + update,
+    params -= v.
+  * ``adam_compressed`` — beyond-paper: the sync (with eta = 1) produces
+    the averaged sparse gradient, so the memory accumulates raw
+    gradients; Adam (b1 0.9, b2 0.999, eps 1e-8) consumes it at the
+    schedule's eta.
+  * ``dense``        — uncompressed baseline (the sync's dense strategy).
+The optimizer state ``opt`` is () for ``memsgd`` and ``dense``, a
+param-shaped float32 tree (the velocity) for ``memsgd_momentum`` and
+{"mu", "nu"} of such trees for ``adam_compressed``; like the params, it
+is updated in place.
 """
 from __future__ import annotations
 
@@ -59,19 +68,22 @@ from repro_torch.core.distributed import (
 from repro_torch.data.pipeline import take
 from repro_torch.kernels.ref import eta32
 from repro_torch.launch.sharding import sync_col_axes
+from repro_torch.optim.adam import bias_correction
 from repro_torch.utils.platform import resolve_device
 from repro_torch.utils.telemetry import NonFiniteLossError, Telemetry
 from repro_torch.utils.tree import tree_flatten, tree_map
 
-OPTIMIZERS = ("memsgd", "dense")
-UNPORTED_OPTIMIZERS = ("memsgd_momentum", "adam_compressed")
+OPTIMIZERS = ("memsgd", "memsgd_momentum", "adam_compressed", "dense")
+# adam_compressed's moments and bias corrections (the reference's)
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    optimizer: str = "memsgd"  # memsgd | dense
-    eta: float = 0.1  # base stepsize
+    optimizer: str = "memsgd"  # memsgd | memsgd_momentum | adam_compressed | dense
+    eta: float = 0.1  # base stepsize (or peak LR for adam)
     eta_shift: float = 0.0  # a>0 enables eta_t = eta*a/(a + t) decay
+    momentum: float = 0.9
     sync: SyncConfig = dataclasses.field(default_factory=SyncConfig)
 
 
@@ -87,12 +99,9 @@ def _eta_schedule(tc: TrainConfig):
 
 
 def _sync_config(tc: TrainConfig) -> SyncConfig:
-    if tc.optimizer in UNPORTED_OPTIMIZERS:
-        raise NotImplementedError(
-            f"optimizer {tc.optimizer!r} is not ported yet; options: "
-            f"{OPTIMIZERS}")
     if tc.optimizer not in OPTIMIZERS:
-        raise ValueError(f"unknown optimizer {tc.optimizer!r}")
+        raise ValueError(f"unknown optimizer {tc.optimizer!r}; options: "
+                         f"{OPTIMIZERS}")
     strategy = "dense" if tc.optimizer == "dense" else tc.sync.strategy
     return dataclasses.replace(tc.sync, strategy=strategy).validate()
 
@@ -108,11 +117,12 @@ def _bucket_plan(sync: SyncConfig, pshapes):
 def init_train_state(model, tc: TrainConfig, *, device="cuda", seed: int = 0,
                      params=None):
     """Returns (params, memory, opt, count): the port's seeded init on
-    ``device`` (or the given ``params``), zero float32 memory, no optimizer
-    state, count 0. The memory is this worker's: a param-shaped tree on
-    the per-leaf path and one (rows, cols) buffer per bucket on the
-    bucketed path (the reference's carry a leading worker axis; in the
-    port each worker's process holds its own)."""
+    ``device`` (or the given ``params``), zero float32 memory, the
+    optimizer mode's zero state (see the module docstring), count 0. The
+    memory is this worker's: a param-shaped tree on the per-leaf path and
+    one (rows, cols) buffer per bucket on the bucketed path (the
+    reference's carry a leading worker axis; in the port each worker's
+    process holds its own)."""
     device = resolve_device(device)
     plan = _bucket_plan(_sync_config(tc), model.param_shapes())
     if params is None:
@@ -120,9 +130,58 @@ def init_train_state(model, tc: TrainConfig, *, device="cuda", seed: int = 0,
     if plan is not None:
         memory = bk.init_bucket_memory(plan, device=device)
     else:
-        memory = tree_map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=device), params)
-    return params, memory, (), 0
+        memory = _f32_zeros(params)
+    return params, memory, init_opt_state(tc, params), 0
+
+
+def _f32_zeros(params):
+    return tree_map(lambda p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device), params)
+
+
+def init_opt_state(tc: TrainConfig, params):
+    """The optimizer mode's zero state on the params' devices."""
+    if tc.optimizer == "memsgd_momentum":
+        return _f32_zeros(params)
+    if tc.optimizer == "adam_compressed":
+        return {"mu": _f32_zeros(params), "nu": _f32_zeros(params)}
+    return ()
+
+
+def make_apply_optimizer(tc: TrainConfig, eta_fn):
+    """(leaves, opt, count, update leaves) -> opt: subtracts the synced
+    update from the params through the optimizer mode, the params and
+    the state in place; each op rounds as the reference's
+    ``apply_optimizer`` does (two products and a sum, not a fused
+    multiply-add)."""
+    if tc.optimizer in ("memsgd", "dense"):
+        def apply(leaves, opt, count, updates):
+            for p, u in zip(leaves, updates):
+                p.sub_(u.to(p.dtype))
+            return opt
+    elif tc.optimizer == "memsgd_momentum":
+        def apply(leaves, opt, count, updates):
+            for p, v, u in zip(leaves, tree_flatten(opt)[0], updates):
+                v.mul_(tc.momentum).add_(u.to(torch.float32))
+                p.sub_(v)
+            return opt
+    else:  # adam_compressed
+        b1, b2, eps = ADAM_B1, ADAM_B2, ADAM_EPS
+
+        def apply(leaves, opt, count, updates):
+            bc1 = bias_correction(b1, count + 1)
+            bc2 = bias_correction(b2, count + 1)
+            lr = eta_fn(count)
+            mus, nus = tree_flatten(opt["mu"])[0], tree_flatten(opt["nu"])[0]
+            for p, mu, nu, u in zip(leaves, mus, nus, updates):
+                u = u.to(torch.float32)
+                mu.mul_(b1).add_(u * (1 - b1))
+                nu.mul_(b2).add_(torch.square(u).mul_(1 - b2))
+                step = (mu / bc1).mul_(lr)
+                step.div_(torch.sqrt(nu / bc2).add_(eps))
+                p.sub_(step)
+            return opt
+    return apply
 
 
 def _mean_metrics(metrics):
@@ -147,6 +206,10 @@ def make_train_step(model, tc: TrainConfig):
     plan = _bucket_plan(sync, pshapes)
     col_axes = sync_col_axes(pshapes)
     eta_fn = _eta_schedule(tc)
+    # adam_compressed: the memory accumulates raw gradients
+    sync_eta = ((lambda t: 1.0) if tc.optimizer == "adam_compressed"
+                else eta_fn)
+    apply_optimizer = make_apply_optimizer(tc, eta_fn)
 
     def step(params, memory, opt, count, batch):
         leaves, treedef = tree_flatten(params)
@@ -156,15 +219,15 @@ def make_train_step(model, tc: TrainConfig):
         del live, loss
         if plan is not None:
             update, new_memory, _ = bucketed_sync_gradients(
-                sync, plan, memory, treedef.unflatten(grads), eta_fn(count))
+                sync, plan, memory, treedef.unflatten(grads), sync_eta(count))
         else:
             update, new_memory, _ = sparse_sync_gradients(
-                sync, memory, treedef.unflatten(grads), eta_fn(count),
+                sync, memory, treedef.unflatten(grads), sync_eta(count),
                 col_axes)
         del grads
         with torch.no_grad():
-            for p, u in zip(leaves, treedef.flatten_up_to(update)):
-                p.sub_(u.to(p.dtype))
+            opt = apply_optimizer(leaves, opt, count,
+                                  treedef.flatten_up_to(update))
         return params, new_memory, opt, count + 1, _mean_metrics(metrics)
 
     step.sync, step.plan, step.col_axes = sync, plan, col_axes
@@ -276,7 +339,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b", choices=ARCH_IDS)
     ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--optimizer", default="memsgd")
+    ap.add_argument("--optimizer", default="memsgd",
+                    help=f"one of {OPTIMIZERS}")
     ap.add_argument("--eta", type=float, default=0.5)
     ap.add_argument("--ratio", type=float, default=0.01)
     ap.add_argument("--strategy", default="sparse_allgather")

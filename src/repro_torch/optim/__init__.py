@@ -1,4 +1,29 @@
-"""Optimizer protocol of the port (``base``)."""
-from repro_torch.optim.base import GradientTransformation
+"""Optimizers of the port (``repro.optim``'s names): the
+GradientTransformation protocol, SGD, momentum, Adam and the schedules.
+QSGD is not ported yet."""
+from repro_torch.optim.base import (
+    GradientTransformation,
+    apply_updates,
+    chain,
+    identity_tx,
+    scale,
+    scale_by_schedule,
+)
+from repro_torch.optim.sgd import sgd, sgd_momentum, add_weight_decay, clip_by_global_norm
+from repro_torch.optim.adam import adam
+from repro_torch.optim import schedules
 
-__all__ = ["GradientTransformation"]
+__all__ = [
+    "GradientTransformation",
+    "apply_updates",
+    "chain",
+    "identity_tx",
+    "scale",
+    "scale_by_schedule",
+    "sgd",
+    "sgd_momentum",
+    "add_weight_decay",
+    "clip_by_global_norm",
+    "adam",
+    "schedules",
+]

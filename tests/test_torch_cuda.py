@@ -262,13 +262,15 @@ def test_topk_kernels_reject_bfloat16_on_the_card():
         row_topk_threshold_cuda(x, 4)
 
 
-def _card_against_cpu(bucketed, arch="qwen3-4b"):
+def _card_against_cpu(bucketed, arch="qwen3-4b", optimizer="memsgd",
+                      eta=0.5):
     """One float32 smoke step from the same params and batch on the CPU
     and on the card: loss to 1e-5 relative, applied update to 1e-3
     relative L2. Returns the kernel launches of each device's step."""
     model = build_model(get_smoke_config(arch).replace(
         compute_dtype="float32"))
-    tc = TrainConfig(eta=0.5, sync=SyncConfig(ratio=0.01, bucketed=bucketed))
+    tc = TrainConfig(optimizer=optimizer, eta=eta,
+                     sync=SyncConfig(ratio=0.01, bucketed=bucketed))
     batch = next(token_batches(512, 4, 64, seed=1))
     host = model.init(seed=0, device="cpu")
     out, launched = {}, {}
@@ -389,3 +391,160 @@ def test_cli_trains_the_topk_preset_on_the_card():
     assert count == 2
     assert SELECTION_LAUNCHES["threshold"] - before["threshold"] == 2
     assert all(math.isfinite(x) for _, x in history)
+
+
+@pytest.mark.parametrize("bucketed", [True, False])
+@pytest.mark.parametrize("optimizer,eta", [("memsgd_momentum", 0.05),
+                                           ("adam_compressed", 3e-3)])
+def test_optimizer_modes_on_the_card_match_the_cpu(optimizer, eta, bucketed):
+    """memsgd_momentum and adam_compressed: the same kernels as memsgd
+    (one fused launch, or one loop top-k launch per sparse leaf)."""
+    _need_card()
+    launched = _card_against_cpu(bucketed, optimizer=optimizer, eta=eta)
+    assert not any(launched["cpu"].values())
+    assert launched["cuda"] == {"fused_memsgd": int(bucketed),
+                                "row_topk_loop": 0 if bucketed else 9,
+                                "row_topk_threshold": 0}
+
+
+def _row(kind, d, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(d).astype(np.float32)
+    if kind == "ties":
+        x = np.round(x * 2) / 2
+    elif kind == "zeros":
+        x = np.zeros(d, np.float32)
+        x[1::3] = -0.0
+    return torch.from_numpy(x).cuda()
+
+
+# the single-row regime: compression.top_k sends one (1, d) row
+SINGLE_ROWS = [(2000, 1), (2000, 3), (47236, 10), (47236, 30),
+               (1 << 20, 1024)]
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "zeros"])
+@pytest.mark.parametrize("d,k", SINGLE_ROWS)
+def test_top_k_single_row_is_bitwise_on_the_card(d, k, kind):
+    """compression.top_k on a CUDA vector launches the kernel that
+    ``row_topk(method="auto")`` picks, once, and gives the plain
+    version's pairs and dense form bit for bit; both kernels agree with
+    it where k <= 64 (k = 1024 orders its pairs through
+    ``write_selected``)."""
+    _need_card()
+    from repro_torch.core.compression import top_k
+
+    x = _row(kind, d, seed=d + k)
+    want = row_topk_ref(x.reshape(1, -1), k)
+    name = ("row_topk_threshold" if k > ops.topk_loop_cutover("cuda")
+            else "row_topk_loop")
+    before = dict(LAUNCHES)
+    vals, idx = top_k(k).sparse(x)
+    torch.cuda.synchronize()
+    assert {n: LAUNCHES[n] - before[n] for n in LAUNCHES} == {
+        n: int(n == name) for n in LAUNCHES}
+    assert torch.equal(vals.view(torch.int32), want[0].reshape(-1).view(
+        torch.int32))
+    assert torch.equal(idx, want[1].reshape(-1))
+    dense = top_k(k).dense(x)
+    expect = torch.zeros_like(x).index_copy_(0, want[1].reshape(-1).long(),
+                                             want[0].reshape(-1))
+    assert torch.equal(dense.view(torch.int32), expect.view(torch.int32))
+    if k <= 64:
+        for fn in (row_topk_loop_cuda, row_topk_threshold_cuda):
+            got = fn(x.reshape(1, -1), k)
+            assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(got, want))
+
+
+def test_blockwise_top_k_on_the_card_matches_the_cpu():
+    """(47, 1024) rows with a padded tail, k_b = 2: the same pairs and
+    dense form as on the CPU."""
+    _need_card()
+    from repro_torch.core.compression import blockwise_top_k
+
+    x = _row("random", 47236, seed=3)
+    comp = blockwise_top_k(2, 1024)
+    got, want = comp.sparse(x), comp.sparse(x.cpu())
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    assert torch.equal(comp.dense(x).cpu(), comp.dense(x.cpu()))
+
+
+def test_memsgd_flat_logreg_on_the_card_matches_the_cpu():
+    """2000 steps of the paper's protocol on a small epsilon-like set: the
+    weighted average's loss below ln 2 on the card, within rtol 1e-3 of
+    the CPU's."""
+    _need_card()
+    from repro_torch.core.compression import top_k
+    from repro_torch.core.memsgd import memsgd_flat
+    from repro_torch.core.theory import WeightedAverage, paper_stepsize
+    from repro_torch.data import (logreg_grad_torch, logreg_loss_torch,
+                                  make_epsilon_like)
+
+    data = make_epsilon_like(n=2000, d=500)
+    idx = np.random.default_rng(0).integers(data.n, size=2000).tolist()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        A = torch.from_numpy(data.A.astype(np.float32)).to(dev)
+        b = torch.from_numpy(data.b.astype(np.float32)).to(dev)
+        x = torch.zeros(data.d, device=dev)
+        tx = memsgd_flat(top_k(2), paper_stepsize(2.0, data.lam, 250.0),
+                         data.d)
+        s = tx.init(x)
+        avg = WeightedAverage(250.0)
+        a_s = avg.init(x)
+        for t, i in enumerate(idx):
+            u, s = tx.update(logreg_grad_torch(A, b, data.lam, x, i), s)
+            x = x + u
+            a_s = avg.update(a_s, x, t)
+        out[dev] = float(logreg_loss_torch(A, b, data.lam, avg.value(a_s)))
+    assert math.isfinite(out["cuda"]) and out["cuda"] < math.log(2)
+    assert abs(out["cuda"] - out["cpu"]) <= 1e-3 * out["cpu"]
+
+
+def test_torch_quickstart_on_the_card():
+    _need_card()
+    import importlib.util
+    import os
+    import sys
+
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "torch_quickstart.py")
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["torch_quickstart"] = mod
+    spec.loader.exec_module(mod)
+    before = LAUNCHES["row_topk_loop"]
+    assert mod.main([]) < 0.01
+    assert LAUNCHES["row_topk_loop"] - before == 2 * 600  # w and b a step
+
+
+def test_random_operators_draw_on_the_card():
+    """rand_k and random_coordinate draw from a generator on the card:
+    memsgd_flat(rand_k) keeps its generator on the params' device and
+    converges on a quadratic; one memory_step's two forms select the same
+    coordinates."""
+    _need_card()
+    from repro_torch.core.compression import rand_k, random_coordinate
+    from repro_torch.core.memory import memory_step
+    from repro_torch.core.memsgd import constant_eta, memsgd_flat
+
+    d, k = 64, 4
+    target = torch.ones(d, device="cuda")
+    tx = memsgd_flat(rand_k(k), constant_eta(0.5 * k / d), d, seed=3)
+    w = torch.zeros(d, device="cuda")
+    s = tx.init(w)
+    assert s.rng.device.type == "cuda"
+    for _ in range(3000):
+        u, s = tx.update(w - target, s)
+        w = w + u
+    assert float(torch.linalg.norm(w - target)) < 1e-2
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    upd = memory_step(rand_k(6), torch.zeros(50, device="cuda"),
+                      torch.randn(50, device="cuda", generator=gen), 0.5, gen)
+    vals, idx = upd.sparse
+    assert sorted(torch.nonzero(upd.applied).reshape(-1).tolist()) == \
+        sorted(idx.tolist())
+    kept = random_coordinate(16.0).dense(target, gen)
+    assert 0 < int((kept != 0).sum()) < d

@@ -49,7 +49,12 @@ from repro.launch.sharding import sync_col_axes as ref_sync_col_axes
 from repro.models import build_model as ref_build_model
 from repro.utils.compat import make_mesh, shard_map
 from repro_torch.configs import get_smoke_config
-from repro_torch.convert import memory_from_jax, memory_to_jax, params_from_jax
+from repro_torch.convert import (
+    memory_from_jax,
+    memory_to_jax,
+    opt_from_jax,
+    params_from_jax,
+)
 from repro_torch.core.buckets import make_plan
 from repro_torch.core.distributed import SyncConfig
 from repro_torch.data import DeviceBatcher, take, token_batches
@@ -369,8 +374,8 @@ def test_cuda_without_a_gpu_raises():
 @pytest.mark.parametrize("tc,err", [
     (TrainConfig(sync=SyncConfig(strategy="hierarchical")),
      NotImplementedError),  # the per-leaf path, two-level sync
-    (TrainConfig(optimizer="adam_compressed",
-                 sync=SyncConfig(bucketed=True)), NotImplementedError),
+    (TrainConfig(sync=SyncConfig(bucketed=True, wire="packed", quant=4)),
+     NotImplementedError),  # the quant wire (QSGD levels)
     (TrainConfig(optimizer="sgd", sync=SyncConfig(bucketed=True)),
      ValueError),
 ])
@@ -378,6 +383,113 @@ def test_unported_or_unknown_settings_raise(tc, err):
     model = build_model(get_smoke_config(ARCH))
     with pytest.raises(err):
         make_train_step(model, tc)
+
+
+# the optimizer modes beyond memsgd and their stepsizes: momentum 0.9 at
+# eta 0.05 (eta / (1 - 0.9) = 0.5, the memsgd tests' step); Adam at the
+# reference's own system-test rate
+OPT_MODES = {"memsgd_momentum": 0.05, "adam_compressed": 3e-3}
+
+
+def _ref_driver_states(rmodel, rtc, batches):
+    """The reference's jitted driver step on a 1x1 (data, model) mesh.
+    Returns its (params, memory, opt) as numpy before each step and after
+    the last, and its losses."""
+    mesh = make_mesh((1, 1), ("data", "model"))
+    state = ref_init_train_state(rmodel, mesh, rtc,
+                                 rng=jax.random.PRNGKey(0))
+    shardings = ref_state_shardings(rmodel, mesh, rtc)
+    params, memory, opt, count = (jax.device_put(x, s)
+                                  for x, s in zip(state, shardings))
+    step = ref_make_train_step(rmodel, mesh, rtc)
+    states, losses = [], []
+    for b in batches:  # copied before the step donates them
+        states.append(jax.tree.map(np.array, (params, memory, opt)))
+        params, memory, opt, count, metrics = step(
+            params, memory, opt, count,
+            {k: jnp.asarray(v) for k, v in b.items()})
+        losses.append(metrics["loss"])
+    states.append(jax.tree.map(np.array, (params, memory, opt)))
+    return states, [float(x) for x in losses]
+
+
+def _flat(leaves):
+    return np.concatenate([np.asarray(x).reshape(-1) for x in leaves])
+
+
+@pytest.mark.parametrize("path", ["bucketed", "per-leaf"])
+@pytest.mark.parametrize("mode", list(OPT_MODES))
+def test_optimizer_modes_match_reference(mode, path):
+    """Two steps of memsgd_momentum / adam_compressed on the qwen3-4b
+    smoke config in float32 compute, the port from the reference's init
+    and optimizer state (``convert``): the losses within rtol 1e-5 and
+    the applied update within relative L2 1e-3 over both steps (the
+    tolerances of _assert_step_agrees), and so is the port's second step
+    taken from the reference's state after its first (a nonzero optimizer
+    state carried across), its optimizer state included."""
+    sync, ref_sync = PATHS[path]
+    batches = list(take(token_batches(512, 4, 64, seed=1), 2))
+    cfg_kw = dict(compute_dtype="float32")
+    rmodel = ref_build_model(ref_get_smoke_config(ARCH).replace(**cfg_kw))
+    states, r_losses = _ref_driver_states(
+        rmodel, RefTrainConfig(optimizer=mode, eta=OPT_MODES[mode],
+                               sync=ref_sync), batches)
+
+    model = build_model(get_smoke_config(ARCH).replace(**cfg_kw))
+    tc = TrainConfig(optimizer=mode, eta=OPT_MODES[mode], sync=sync)
+    port_step = make_train_step(model, tc)
+
+    def port_state(i):
+        params_np, memory_np, opt_np = states[i]
+        return (params_from_jax(params_np), memory_from_jax(memory_np),
+                opt_from_jax(opt_np))
+
+    def batch(i):
+        return {k: torch.from_numpy(v) for k, v in batches[i].items()}
+
+    p, m, o = port_state(0)
+    c, losses = 0, []
+    for i in range(2):
+        p, m, o, c, metrics = port_step(p, m, o, c, batch(i))
+        losses.append(metrics["loss"])
+    losses = [float(x) for x in losses]
+    before = _flat(jax.tree.leaves(states[0][0]))
+    want = before - _flat(jax.tree.leaves(states[2][0]))
+    _assert_step_agrees(
+        (losses, before - _flat(x.numpy() for x in tree_leaves(p))),
+        (r_losses, want))
+    assert _rel_l2(_flat(x.numpy() for x in tree_leaves(o)),
+                   _flat(jax.tree.leaves(states[2][2]))) < 1e-3
+
+    # the second step from the reference's state after its first
+    p, m, o = port_state(1)
+    assert np.count_nonzero(_flat(x.numpy() for x in tree_leaves(o))) > 0
+    p, m, o, _, metrics = port_step(p, m, o, 1, batch(1))
+    before = _flat(jax.tree.leaves(states[1][0]))
+    _assert_step_agrees(
+        (float(metrics["loss"]), before - _flat(x.numpy()
+                                                for x in tree_leaves(p))),
+        (r_losses[1], before - _flat(jax.tree.leaves(states[2][0]))))
+    assert _rel_l2(_flat(x.numpy() for x in tree_leaves(o)),
+                   _flat(jax.tree.leaves(states[2][2]))) < 1e-3
+
+
+@pytest.mark.parametrize("mode", list(OPT_MODES))
+def test_main_trains_the_optimizer_modes_on_the_cpu(mode):
+    out = io.StringIO()
+    with redirect_stdout(out):
+        params, memory, opt, count, history = train_mod.main(
+            ["--platform", "cpu", "--optimizer", mode, "--eta",
+             str(OPT_MODES[mode]), "--steps", "3", "--batch", "2", "--seq",
+             "32"])
+    assert count == 3 and all(math.isfinite(x) for _, x in history)
+    assert isinstance(opt, dict)
+    shapes = [p.shape for p in tree_leaves(params)]
+    if mode == "adam_compressed":
+        assert set(opt) == {"mu", "nu"}
+        assert [x.shape for x in tree_leaves(opt["mu"])] == shapes
+    else:
+        assert [x.shape for x in tree_leaves(opt)] == shapes
 
 
 @pytest.mark.parametrize("eta,shift", [(0.5, 0.0), (0.37, 10.0), (1.3, 3.0)])
