@@ -60,7 +60,12 @@ Phases, each of which fails the run with a non-zero exit:
    that take the most device time.
 7. A small input: one train step of each architecture's smoke config in
    float32 on the card and on the CPU (the plain versions) must agree, on
-   the bucketed path, the topk preset and the per-leaf path.
+   the bucketed path, the topk preset and the per-leaf path; for the two
+   MoE configs every layer's routing (top_i, keep) must be identical
+   first (the smallest top-K probability margin is printed), then the
+   gradients, and the CPU's step from the card's gradients must give the
+   card's update bit for bit, so that a near-tie flip in the selection is
+   told apart from a fault.
 8. The single-row regime (after phase 3's cutover sweep): the top-k of
    one wide row, as ``compression.top_k`` sends a flat vector, and of
    ``blockwise_top_k``'s (nb, block) rows. ``row_topk`` (the kernel its
@@ -91,23 +96,38 @@ Phases, each of which fails the run with a non-zero exit:
    rtol 1e-3. Prints
    each run's loss beside the baseline's, its us/step and its kernel
    launches per step.
+11. The MoE family (after qwen3-4b's per-leaf path): granite-moe-3b-a800m
+   (40 experts, top-8) at full width, depth cut to 8 layers, on all three
+   paths as qwen3-4b's (bucketed: its (935136, 1024) bucket at k = 10;
+   the topk preset packed, then unpacked: identical losses; per-leaf with
+   both selections: 10 loop, then 10 threshold launches per step,
+   identical losses); qwen3-moe-30b-a3b (128 experts, top-8) at full
+   width, depth cut to 2 layers, bucketed (its (1825280, 1024) bucket,
+   1.87e9 elements) and per-leaf. Then the rest of the dense family at
+   full width, per-leaf with ``argmax_onehot``, DENSE_STEPS steps each
+   (qwen1.5-4b, yi-9b, granite-3-8b and musicgen-medium at 2 layers,
+   internvl2-26b at 1): the loop kernel at k = 41 (C = 4096) and 61
+   (C = 6144). Every run checks its bytes per step against the
+   reference's accounting, and is profiled.
 
-Phase 3 runs the kernels at both architectures' shapes: the fused kernel
-at each bucket, the top-k kernels at every per-leaf (rows, C, k) of both,
-timed per per-leaf step of each and, for rwkv6-3b, over its rows narrower
-than 1024 alone.
+Phase 3 runs the kernels at every architecture's shapes: the fused
+kernel at each bucket (qwen3-4b's, rwkv6-3b's and the two MoE configs'),
+the top-k kernels at every per-leaf (rows, C, k) of each, timed per
+per-leaf step of each and, for rwkv6-3b, over its rows narrower than 1024
+alone.
 
 Prints each architecture's launches per kernel on a
 ``{"launches_by_arch": ...}`` line, the optimizer modes' and the logistic
 regression runs' on a ``{"launches_by_path": ...}`` line, then a
-``{"kernels": [...]}`` line
-(the main path's, qwen3-4b's, shapes and launches), then the card's name
-and power limit, then the result line ``{"ok": true, "device": {...}}``
+``{"kernels": [...]}`` line (this slice's main configuration's,
+granite-moe-3b-a800m's, shapes and launches), then the card's name and
+power limit, then the result line ``{"ok": true, "device": {...}}``
 last.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -143,6 +163,40 @@ ETAS = {ARCH: ETA, RWKV_ARCH: RWKV_ETA}
 RWKV_SHAPE = (1002500, 1024)
 RWKV_BYTES = {"per-leaf": 83_927_936, "bucketed": 80_210_240,
               "topk packed": 108_280_272, "topk unpacked": 160_410_240}
+# the MoE family. granite-moe-3b-a800m (40 experts, top-8) at full width,
+# depth cut to 8 layers, on all three paths: the kernels line holds its
+# shapes and launches. qwen3-moe-30b-a3b (128 experts, top-8) at full
+# width, depth cut to 2 layers (1.87e9 parameters; its bucket is the
+# largest fused launch), on the per-leaf and bucketed paths. Their sparse
+# buckets and bytes per step (the reference's accounting,
+# tests/test_torch_moe.py)
+MOE_ARCH, MOE_LAYERS = "granite-moe-3b-a800m", 8
+MOE_SHAPE = (935136, 1024)
+MOE_BYTES = {"per-leaf": 74_975_232, "bucketed": 74_915_328,
+             "topk packed": 101_099_168, "topk unpacked": 149_726_208}
+QMOE_ARCH, QMOE_LAYERS = "qwen3-moe-30b-a3b", 2
+QMOE_SHAPE = (1825280, 1024)
+QMOE_BYTES = {"per-leaf": 150_251_520, "bucketed": 146_065_408}
+# the rest of the dense family at full width, per-leaf path, DENSE_STEPS
+# steps each: (depth, bytes per step, the reference's accounting,
+# tests/test_torch_models.py). internvl2-26b keeps 1 layer: its embed and
+# lm_head alone hold 1.14e9 parameters
+DENSE = {"qwen1.5-4b": (2, 76_257_280), "yi-9b": (2, 69_775_360),
+         "granite-3-8b": (2, 64_401_408), "internvl2-26b": (1, 121_503_744),
+         "musicgen-medium": (2, 6_420_480)}
+DENSE_STEPS = 3
+# the MoE configs train at the eta of the reference's own MoE Mem-SGD
+# runs (benchmarks/run.py:1664, its config-zoo matrix, the topk preset):
+# at 0.5 granite-moe's topk preset path rose from 10.98 to 36.18 at its
+# fourth step
+ETAS.update({MOE_ARCH: 0.3, QMOE_ARCH: 0.3})
+ETAS.update({arch: ETA for arch in DENSE})
+# each architecture's depth on the card
+DEPTHS = {ARCH: N_LAYERS, RWKV_ARCH: RWKV_LAYERS, MOE_ARCH: MOE_LAYERS,
+          QMOE_ARCH: QMOE_LAYERS, **{a: d for a, (d, _) in DENSE.items()}}
+# every sparse bucket phase 3 runs the fused kernel at
+BUCKETS = {ARCH: PATH_SHAPE, RWKV_ARCH: RWKV_SHAPE, MOE_ARCH: MOE_SHAPE,
+           QMOE_ARCH: QMOE_SHAPE}
 # the per-leaf rows narrower than this are timed on their own
 NARROW_C = 1024
 KERNEL_SOURCES = ("fused_memsgd", "topk_select")
@@ -304,11 +358,10 @@ def kernel_cases(dev):
     flat_m, flat_g = randn((8 * 1024 + 1,), 11), randn((8 * 1024 + 1,), 12)
     yield ("unaligned rows (8,1024) k=16", flat_m[1:].view(8, 1024),
            flat_g[1:].view(8, 1024), 0.37, 16)
-    yield (f"main path {PATH_SHAPE} k={PATH_K}", randn(PATH_SHAPE, 13) * 0.01,
-           randn(PATH_SHAPE, 14), ETA, PATH_K)
-    yield (f"{RWKV_ARCH} bucket {RWKV_SHAPE} k={PATH_K}",
-           randn(RWKV_SHAPE, 15) * 0.01, randn(RWKV_SHAPE, 16), RWKV_ETA,
-           PATH_K)
+    for i, (arch, shape) in enumerate(BUCKETS.items()):
+        yield (f"{arch} bucket {shape} k={PATH_K}",
+               randn(shape, 13 + 2 * i) * 0.01, randn(shape, 14 + 2 * i),
+               ETAS[arch], PATH_K)
 
 
 def phase_kernel(dev) -> dict:
@@ -334,13 +387,13 @@ def phase_kernel(dev) -> dict:
     if bad:
         fail(f"fused_memsgd differs from its plain version on {bad}")
 
-    # times at the main path's shape
+    # times at the kernels line's bucket (MOE_ARCH's)
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
-    m = torch.randn(PATH_SHAPE, generator=gen, device=dev) * 0.01
+    m = torch.randn(MOE_SHAPE, generator=gen, device=dev) * 0.01
     gen.manual_seed(14)
-    g = torch.randn(PATH_SHAPE, generator=gen, device=dev)
-    R, C = PATH_SHAPE
+    g = torch.randn(MOE_SHAPE, generator=gen, device=dev)
+    R, C = MOE_SHAPE
     ms = cuda_ms(lambda: fused_memsgd_cuda(m, g, ETA, PATH_K), iters=10,
                  warmup=2)
     plain_ms = cuda_ms(lambda: fused_memsgd_ref(m, g, ETA, PATH_K), iters=3)
@@ -350,9 +403,9 @@ def phase_kernel(dev) -> dict:
     op_ms = 2 * R * C / F32_FLOPS_PER_S * 1e3
     del m, g
     torch.cuda.empty_cache()
-    print(f"  fused_memsgd {PATH_SHAPE} k={PATH_K}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-          f"{max(byte_ms, op_ms):.4f} ms ({nbytes} bytes)")
+    print(f"  fused_memsgd {MOE_ARCH} {MOE_SHAPE} k={PATH_K}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} "
+          f"ms, bound {max(byte_ms, op_ms):.4f} ms ({nbytes} bytes)")
     return {
         "name": "fused_memsgd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_memsgd.cu",
@@ -454,11 +507,11 @@ def phase_fused_threshold(dev) -> dict:
 
     # both branches at each configuration's bucket, in turns: at the topk
     # preset's k = 20 and at the bucketed path's k = 10; the branch's entry
-    # below keeps the main path's figures at k = 20
+    # below keeps the kernels line's (MOE_ARCH's) figures at k = 20
     gen = torch.Generator(device=dev)
     entry = None
-    for arch, shape, seed in ((ARCH, PATH_SHAPE, 13),
-                              (RWKV_ARCH, RWKV_SHAPE, 15)):
+    for i, (arch, shape) in enumerate(BUCKETS.items()):
+        seed = 13 + 2 * i
         gen.manual_seed(seed)
         m = torch.randn(shape, generator=gen, device=dev) * 0.01
         gen.manual_seed(seed + 1)
@@ -484,7 +537,7 @@ def phase_fused_threshold(dev) -> dict:
                   f"loop branch {' / '.join(f'{x:.4f}' for x in t['loop'])} "
                   f"ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} "
                   f"ms, bound {max(byte_ms, op_ms):.4f} ms ({nbytes} bytes)")
-            if arch == ARCH and k == TOPK_K:
+            if arch == MOE_ARCH and k == TOPK_K:
                 entry = (ms, plain_ms, library_ms, byte_ms, op_ms)
         del m, g
         torch.cuda.empty_cache()
@@ -678,7 +731,7 @@ def phase_topk(dev, leaf_shapes) -> list:
     times per per-leaf step of each architecture (the sum over the path's
     leaves) beside the plain version's, the library call's and the bound.
     ``leaf_shapes``: arch -> its per-leaf (rows, C, k) calls. Returns the
-    kernels' entries at the main path's (ARCH's) shapes."""
+    kernels' entries at the kernels line's (MOE_ARCH's) shapes."""
     from repro_torch.kernels.ref import row_topk_ref
 
     fns = topk_wrappers()
@@ -731,7 +784,7 @@ def phase_topk(dev, leaf_shapes) -> list:
     torch.cuda.empty_cache()
     out = []
     for name, line in zip(TOPK_KERNELS, ("285", "315")):
-        t, bound_ms, bound_by = times[ARCH]["all"][name]
+        t, bound_ms, bound_by = times[MOE_ARCH]["all"][name]
         out.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/topk_select.cu",
@@ -866,12 +919,13 @@ def step_clock():
     return StepClock()
 
 
-def run_path(label, model, tc, dev, expect: dict):
-    """One path's run through ``train()`` for STEPS steps from the seeded
-    init: every launch count zeroed just before, read just after, and
-    checked against ``expect`` (kernel -> launches; every other kernel 0).
-    Fails unless the losses are finite from near ln V, the last below the
-    first, and every parameter moved somewhere. Returns (losses, counts, params, memory, batches)."""
+def run_path(label, model, tc, dev, expect: dict, steps: int = STEPS):
+    """One path's run through ``train()`` for ``steps`` steps from the
+    seeded init: every launch count zeroed just before, read just after,
+    and checked against ``expect`` (kernel -> launches; every other kernel
+    0). Fails unless the losses are finite from near ln V, the last below
+    the first, and every parameter moved somewhere. Returns (losses,
+    counts, params, memory, batches)."""
     from repro_torch.data import DeviceBatcher, token_batches
     from repro_torch.launch.train import train
     from repro_torch.utils.tree import tree_leaves
@@ -886,7 +940,7 @@ def run_path(label, model, tc, dev, expect: dict):
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
     params, memory, _, count, _ = train(
-        model, tc, batches, STEPS, device=dev, params=params, log_every=1,
+        model, tc, batches, steps, device=dev, params=params, log_every=1,
         telemetry=tel)
     torch.cuda.synchronize()
     counts = launch_counts()
@@ -904,17 +958,17 @@ def run_path(label, model, tc, dev, expect: dict):
           f"{peak / 2**30:.2f} GiB; launches {counts}; "
           f"{changed} parameter entries changed")
     lnv = math.log(cfg.vocab_size)
-    if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
-        fail(f"{label}: expected {STEPS} finite losses, got {losses}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: expected {steps} finite losses, got {losses}")
     if not lnv - 1 <= losses[0] <= lnv + 2:
         fail(f"{label}: first loss {losses[0]} outside [ln V - 1, ln V + 2] "
              f"= [{lnv - 1:.3f}, {lnv + 2:.3f}]")
     if not losses[-1] < losses[0]:
-        fail(f"{label}: the loss did not fall in {STEPS} steps: {losses}")
+        fail(f"{label}: the loss did not fall in {steps} steps: {losses}")
     want = {name: expect.get(name, 0) for name in counts}
     if counts != want:
-        fail(f"{label}: launches {counts} in {STEPS} steps, expected {want}")
-    if count != STEPS or changed == 0:
+        fail(f"{label}: launches {counts} in {steps} steps, expected {want}")
+    if count != steps or changed == 0:
         fail(f"{label}: count {count}, {changed} parameter entries changed")
     return losses, counts, params, memory, batches
 
@@ -1028,10 +1082,10 @@ def selection_launches(selection, calls) -> dict:
 
 def phase_leaf(dev, calls, arch=ARCH, n_layers=N_LAYERS,
                selections=("argmax_onehot", "topk_scatter"),
-               nbytes=None) -> dict:
+               nbytes=None, steps: int = STEPS) -> dict:
     """The per-leaf path of ``arch`` with each selection (``calls``: its
-    per-leaf (rows, C, k) calls); returns each top-k kernel's launches in
-    the selections' runs."""
+    per-leaf (rows, C, k) calls), ``steps`` steps each; returns each top-k
+    kernel's launches in the selections' runs."""
     from repro_torch.core.distributed import SyncConfig, message_bytes
     from repro_torch.launch.sharding import sync_col_axes
     from repro_torch.launch.train import TrainConfig
@@ -1050,15 +1104,15 @@ def phase_leaf(dev, calls, arch=ARCH, n_layers=N_LAYERS,
     for selection in selections:
         tc = TrainConfig(optimizer="memsgd", eta=ETAS[arch],
                          sync=SyncConfig(ratio=RATIO, selection=selection))
-        expect = {name: STEPS * n for name, n in
+        expect = {name: steps * n for name, n in
                   selection_launches(selection, calls).items()}
         losses[selection], counts, params, memory, batches = run_path(
             f"{arch} per-leaf path, selection={selection}", model, tc, dev,
-            expect)
+            expect, steps)
         launches.update({name: counts[name] for name in expect})
         if arch == ARCH and selection == "argmax_onehot":
             params, memory = step_u_topk(model, tc, params, memory, batches)
-        profile_steps(model, tc, params, memory, batches, dev)
+        profile_steps(model, tc, params, memory, batches, dev, count=steps)
         del params, memory, batches
         torch.cuda.empty_cache()
     if len(set(map(tuple, losses.values()))) != 1:
@@ -1125,7 +1179,7 @@ def step_u_topk(model, tc, params, memory, batches):
 
 
 def profile_steps(model, tc, params, memory, batches, dev, n: int = 5,
-                  opt=()) -> None:
+                  opt=(), count: int = STEPS) -> None:
     """Where a path's step time goes: torch.profiler over ``n`` steady
     steps continuing the run above (launches here are not counted).
     Prints the wall time per step, the device's busy time per step
@@ -1137,7 +1191,6 @@ def profile_steps(model, tc, params, memory, batches, dev, n: int = 5,
     from repro_torch.launch.train import make_train_step
 
     step = make_train_step(model, tc)
-    count = STEPS
     it = iter(batches)
     params, memory, opt, count, _ = step(params, memory, opt, count, next(it))
     torch.cuda.synchronize()
@@ -1347,13 +1400,74 @@ def phase_logreg(dev) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def routing_capture():
+    """While open, records each MoE layer's routing as it runs: top_i and
+    keep (on the host) and the smallest top-K probability margin (a
+    token's K-th largest probability less its next), so that a routing
+    flip between two devices can be told apart from a fault."""
+    from repro_torch.models import moe
+
+    rec = {"top_i": [], "keep": [], "margin": []}
+    top_k, assign = moe.router_top_k, moe.assign_slots
+
+    def top_k_(probs, k):
+        vals, idx = top_k(probs, k)
+        s = torch.sort(probs.detach(), dim=-1, descending=True).values
+        rec["margin"].append(float((s[..., k - 1] - s[..., k]).min()))
+        rec["top_i"].append(idx.cpu())
+        return vals, idx
+
+    def assign_(top_i, n_experts, C):
+        keep, slot = assign(top_i, n_experts, C)
+        rec["keep"].append(keep.cpu())
+        return keep, slot
+
+    moe.router_top_k, moe.assign_slots = top_k_, assign_
+    try:
+        yield rec
+    finally:
+        moe.router_top_k, moe.assign_slots = top_k, assign
+
+
+@contextlib.contextmanager
+def gradient_tap(replace=None):
+    """While open, records the gradients the train step computes (the
+    result of ``torch.autograd.grad``, on the host) and, given ``replace``
+    (a list of host tensors), hands the step those in place of its own."""
+    real = torch.autograd.grad
+    rec = []
+
+    def grad(outputs, inputs, *args, **kwargs):
+        out = real(outputs, inputs, *args, **kwargs)
+        rec.append([g.detach().cpu() for g in out])
+        if replace is not None:
+            out = tuple(r.to(g.device) for r, g in zip(replace, out))
+        return out
+
+    torch.autograd.grad = grad
+    try:
+        yield rec
+    finally:
+        torch.autograd.grad = real
+
+
 def phase_small(dev) -> None:
     """One float32 step of each architecture's smoke config on the card
     and on the CPU (plain versions) from the same params and batch must
     agree, on the bucketed path, the topk preset (the threshold branch,
-    packed wire) and the per-leaf path: loss to 1e-5 relative, the applied
-    update to 1e-3 relative L2 (matrix products sum in another order on
-    the card, which can flip a rare near-tie in the selection)."""
+    packed wire) and the per-leaf path: loss to 1e-5 relative. qwen3-4b
+    and rwkv6-3b: the applied update to 1e-3 relative L2 (matrix products
+    sum in another order on the card, which can flip a rare near-tie in
+    the selection). The MoE configs: the routing of every layer (top_i,
+    keep) identical first, the smallest top-K probability margin printed
+    beside it; the gradients within 1e-5 relative L2 (float32 products
+    and sums in another order); and the CPU's step taken from the card's
+    gradients must give the card's update bit for bit (the sync is exact:
+    the kernels' contract, float32 ops each rounded once). A selection
+    flip is then told apart from a fault: the end-to-end update's relative
+    L2 and the entries selected on one device only are printed, not held
+    (a single flip at k = 20 in a smoke bucket moves it by ~1.5e-3)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.distributed import SyncConfig
     from repro_torch.data import token_batches
@@ -1365,44 +1479,102 @@ def phase_small(dev) -> None:
     paths = {"bucketed": SyncConfig(ratio=RATIO, bucketed=True),
              "topk preset": SyncConfig.preset("topk", ratio=TOPK_RATIO),
              "per-leaf": SyncConfig(ratio=RATIO)}
-    for arch in (ARCH, RWKV_ARCH):
+    for arch in (ARCH, RWKV_ARCH, MOE_ARCH, QMOE_ARCH):
         cfg = get_smoke_config(arch).replace(compute_dtype="float32")
         model = build_model(cfg)
         batch = next(token_batches(cfg.vocab_size, 4, 64, seed=1))
         host = model.init(seed=0, device="cpu")
         for path, sync in paths.items():
             tc = TrainConfig(eta=ETAS[arch], sync=sync)
-            out = {}
-            for d in (torch.device("cpu"), dev):
+            def one_step(d, grads=None):
+                """(loss, update on the host, routes, gradients) of one
+                step on ``d``, from the card's gradients if given."""
                 params, memory, opt, count = init_train_state(
                     model, tc, device=d,
                     params=tree_map(lambda t: t.to(d, copy=True), host))
                 before = [p.clone() for p in tree_leaves(params)]
                 step = make_train_step(model, tc)
-                params, memory, opt, count, met = step(
-                    params, memory, opt, count,
-                    {k: torch.as_tensor(v, device=d)
-                     for k, v in batch.items()})
+                with routing_capture() as routes, \
+                        gradient_tap(grads) as tapped:
+                    params, memory, opt, count, met = step(
+                        params, memory, opt, count,
+                        {k: torch.as_tensor(v, device=d)
+                         for k, v in batch.items()})
                 upd = torch.cat([(a - b).reshape(-1).cpu() for a, b in
                                  zip(before, tree_leaves(params))])
-                out[d.type] = (float(met["loss"]), upd)
-            (l_cpu, u_cpu), (l_gpu, u_gpu) = out["cpu"], out["cuda"]
+                return float(met["loss"]), upd, routes, tapped[0]
+
+            (l_cpu, u_cpu, r_cpu, g_cpu) = one_step(torch.device("cpu"))
+            (l_gpu, u_gpu, r_gpu, g_gpu) = one_step(dev)
+            if cfg.moe is not None:
+                same = all(len(r_cpu[key]) == len(r_gpu[key]) == cfg.n_layers
+                           and all(torch.equal(a, b) for a, b in
+                                   zip(r_cpu[key], r_gpu[key]))
+                           for key in ("top_i", "keep"))
+                margin = min(r_cpu["margin"] + r_gpu["margin"])
+                print(f"small input, {arch} {path} path: routing of "
+                      f"{cfg.n_layers} layers (top_i, keep) "
+                      f"{'identical' if same else 'DIFFERS'} on card and "
+                      f"cpu; smallest top-{cfg.moe.top_k} probability margin "
+                      f"{margin:.3e}")
+                if not same:
+                    fail(f"the card's {arch} {path} routing differs from the "
+                         f"CPU's (smallest margin {margin:.3e})")
             rel_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
             rel_upd = float((u_gpu - u_cpu).norm() / u_cpu.norm())
             print(f"small input, {arch} {path} path: loss card {l_gpu} vs "
                   f"cpu {l_cpu} (rel {rel_loss:.2e}), update rel L2 "
                   f"{rel_upd:.2e}")
-            if rel_loss > 1e-5 or rel_upd > 1e-3:
+            if rel_loss > 1e-5:
+                fail(f"the card's {arch} {path} loss disagrees with the "
+                     "CPU's on the small input")
+            if cfg.moe is None:
+                if rel_upd > 1e-3:
+                    fail(f"the card's {arch} {path} step disagrees with the "
+                         "CPU's on the small input")
+                continue
+            gc, gg = (torch.cat([g.reshape(-1) for g in gs])
+                      for gs in (g_cpu, g_gpu))
+            rel_grad = float((gg - gc).norm() / gc.norm())
+            u_from_card = one_step(torch.device("cpu"), g_gpu)[1]
+            exact = same_bits(u_from_card, u_gpu)
+            flips = int(((u_gpu == 0) != (u_cpu == 0)).sum())
+            print(f"small input, {arch} {path} path: gradients rel L2 "
+                  f"{rel_grad:.2e}; the CPU's step from the card's gradients "
+                  f"{'bitwise equal to' if exact else 'DIFFERS from'} the "
+                  f"card's; {flips} entries selected on one device only")
+            if rel_grad > 1e-5 or not exact:
                 fail(f"the card's {arch} {path} step disagrees with the "
                      "CPU's on the small input")
+
+
+def phase_moe(dev, leaf_shapes) -> dict:
+    """The MoE family: MOE_ARCH on the bucketed path, the topk preset
+    (packed, then unpacked) and the per-leaf path with both selections;
+    QMOE_ARCH on the bucketed and the per-leaf path. Returns each
+    architecture's launches."""
+    moe = {"fused_memsgd": phase_bucketed(
+        dev, MOE_ARCH, MOE_LAYERS, MOE_SHAPE, MOE_BYTES["bucketed"])}
+    moe["fused_memsgd_threshold"] = phase_topk_preset(
+        dev, MOE_ARCH, MOE_LAYERS,
+        {"packed": MOE_BYTES["topk packed"],
+         "unpacked": MOE_BYTES["topk unpacked"]})
+    moe.update(phase_leaf(dev, leaf_shapes[MOE_ARCH], MOE_ARCH, MOE_LAYERS,
+                          nbytes=MOE_BYTES["per-leaf"]))
+    qmoe = {"fused_memsgd": phase_bucketed(
+        dev, QMOE_ARCH, QMOE_LAYERS, QMOE_SHAPE, QMOE_BYTES["bucketed"])}
+    qmoe.update(phase_leaf(dev, leaf_shapes[QMOE_ARCH], QMOE_ARCH,
+                           QMOE_LAYERS, ("argmax_onehot",),
+                           QMOE_BYTES["per-leaf"]))
+    return {MOE_ARCH: moe, QMOE_ARCH: qmoe}
 
 
 def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    leaf_shapes = {ARCH: leaf_row_shapes(),
-                   RWKV_ARCH: leaf_row_shapes(RWKV_ARCH, RWKV_LAYERS)}
+    leaf_shapes = {arch: leaf_row_shapes(arch, depth)
+                   for arch, depth in DEPTHS.items()}
     kernels = ([phase_kernel(dev), phase_fused_threshold(dev)]
                + phase_topk(dev, leaf_shapes))
     phase_cutover(dev)
@@ -1410,6 +1582,10 @@ def main() -> None:
     launches = {"fused_memsgd": phase_bucketed(dev),
                 "fused_memsgd_threshold": phase_topk_preset(dev)}
     launches.update(phase_leaf(dev, leaf_shapes[ARCH]))
+    by_arch = {ARCH: launches, **phase_moe(dev, leaf_shapes)}
+    for arch, (depth, nbytes) in DENSE.items():
+        by_arch[arch] = phase_leaf(dev, leaf_shapes[arch], arch, depth,
+                                   ("argmax_onehot",), nbytes, DENSE_STEPS)
     by_path = {"optimizer modes": phase_opt_modes(dev, leaf_shapes[ARCH])}
     rwkv = {"fused_memsgd": phase_bucketed(
         dev, RWKV_ARCH, RWKV_LAYERS, RWKV_SHAPE, RWKV_BYTES["bucketed"])}
@@ -1420,11 +1596,12 @@ def main() -> None:
     rwkv.update(phase_leaf(dev, leaf_shapes[RWKV_ARCH], RWKV_ARCH,
                            RWKV_LAYERS, ("argmax_onehot",),
                            RWKV_BYTES["per-leaf"]))
+    by_arch[RWKV_ARCH] = rwkv
     by_path["logistic regression"] = phase_logreg(dev)
     phase_small(dev)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-    print(json.dumps({"launches_by_arch": {ARCH: launches, RWKV_ARCH: rwkv}}))
+        k["launches"] = by_arch[MOE_ARCH][k["name"]]
+    print(json.dumps({"launches_by_arch": by_arch}))
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

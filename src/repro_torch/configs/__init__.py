@@ -2,15 +2,28 @@
 
 ``get_config(arch_id)`` returns the full ``ModelConfig``;
 ``get_smoke_config(arch_id)`` the reduced same-family variant the CPU
-tests use. Only the architectures the port runs are listed.
+tests use. Every architecture of the reference is listed but
+recurrentgemma-9b (the hybrid griffin family, not ported yet): the dense
+decoders, the two MoE decoders and rwkv6-3b.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, RWKVConfig
+from repro_torch.configs.base import ModelConfig, MoEConfig, RWKVConfig
 
-ARCH_IDS = ("qwen3-4b", "rwkv6-3b")
+# the reference's ARCH_IDS, in its order, without recurrentgemma-9b
+ARCH_IDS = (
+    "rwkv6-3b",
+    "qwen1.5-4b",
+    "yi-9b",
+    "musicgen-medium",
+    "qwen3-moe-30b-a3b",
+    "qwen3-4b",
+    "internvl2-26b",
+    "granite-3-8b",
+    "granite-moe-3b-a800m",
+)
 
 
 def _module(arch_id: str):
@@ -28,5 +41,5 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).smoke_config()
 
 
-__all__ = ["ModelConfig", "RWKVConfig", "ARCH_IDS", "get_config",
-           "get_smoke_config"]
+__all__ = ["ModelConfig", "MoEConfig", "RWKVConfig", "ARCH_IDS",
+           "get_config", "get_smoke_config"]

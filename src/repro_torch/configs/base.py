@@ -1,16 +1,27 @@
-"""Model configuration dataclass (the port's own copy of
-``repro.configs.base.ModelConfig``, restricted to what the port runs).
+"""Model configuration dataclasses (the port's own copy of
+``repro.configs.base``'s ``ModelConfig``, ``MoEConfig`` and
+``RWKVConfig``, restricted to what the port runs).
 
 One ``ModelConfig`` per architecture lives in
 ``repro_torch/configs/<arch_id>.py``; each exposes ``config()`` (full
-size) and ``smoke_config()`` (reduced: 2 layers, narrow widths, runnable
-on a CPU). The port runs the dense decoder and the RWKV families, so the
-reference's MoE, hybrid, prefix-embedding and remat fields are absent.
+size) and ``smoke_config()`` (reduced: 2 layers, narrow widths, <= 4
+experts, runnable on a CPU). The port runs the dense decoder, MoE and
+RWKV families; the reference's hybrid (griffin) and remat fields are
+absent.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int  # per-expert FFN hidden size
+    aux_loss_weight: float = 0.01
+    router_jitter: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,7 +35,7 @@ class RWKVConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str  # dense | rwkv (the families the port runs)
+    family: str  # dense | moe | rwkv (the families the port runs)
     n_layers: int
     d_model: int
     n_heads: int
@@ -40,6 +51,11 @@ class ModelConfig:
     # norms
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    # modality: number of stub frontend embedding positions that replace
+    # the first token positions (audio frames / vision patches). 0 for
+    # text-only.
+    n_prefix_embeddings: int = 0
+    moe: Optional[MoEConfig] = None
     rwkv: Optional[RWKVConfig] = None
     # numerics
     param_dtype: str = "float32"

@@ -1,4 +1,4 @@
-"""Model zoo of the port (dense decoder and RWKV families)."""
+"""Model zoo of the port (dense decoder, MoE and RWKV families)."""
 from repro_torch.models.model import Model, build_model
 
 __all__ = ["Model", "build_model"]

@@ -1,5 +1,6 @@
 """Model bundle: family dispatch, init, forward, loss (port of
-``repro.models.model`` for the dense and RWKV families).
+``repro.models.model`` for the dense, MoE and RWKV families; the hybrid
+griffin family raises by name).
 
     model = build_model(cfg)
     params = model.init(seed=0, device="cuda")
@@ -42,6 +43,7 @@ def _xent(cfg, logits: torch.Tensor, labels: torch.Tensor
 
 _FAMILIES = {
     "dense": transformer,
+    "moe": transformer,
     "rwkv": rwkv,
 }
 
@@ -78,8 +80,9 @@ class Model:
     # -- training path --------------------------------------------------------
 
     def forward(self, params, batch, window: Optional[int] = None):
-        return self._mod.forward(self._cast(params), self.cfg,
-                                 batch["tokens"], window=window)
+        return self._mod.forward(
+            self._cast(params), self.cfg, batch["tokens"],
+            prefix_embeds=batch.get("prefix_embeds"), window=window)
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
         logits, aux = self.forward(params, batch)
@@ -88,6 +91,18 @@ class Model:
 
     def n_params(self) -> int:
         return sum(p.numel() for p in tree_leaves(self.param_shapes()))
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only top_k of n_experts count)."""
+        cfg = self.cfg
+        total = self.n_params()
+        if cfg.moe is None:
+            return total
+        moe = self.param_shapes()["blocks"]["moe"]
+        expert_total = sum(moe[name].numel()
+                           for name in ("w_gate", "w_up", "w_down"))
+        active_frac = cfg.moe.top_k / cfg.moe.n_experts
+        return int(total - expert_total + expert_total * active_frac)
 
 
 def build_model(cfg: ModelConfig) -> Model:

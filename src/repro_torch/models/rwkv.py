@@ -284,11 +284,12 @@ def init_state(cfg, batch: int, device="cpu") -> dict:
     }
 
 
-def forward(params: dict, cfg, tokens: torch.Tensor, window=None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: dict, cfg, tokens: torch.Tensor, prefix_embeds=None,
+            window=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, T) -> (logits (B, T, V_padded), aux_loss ()). Each layer
-    starts from the zero state of ``init_state``."""
-    del window
+    starts from the zero state of ``init_state``; no RWKV config has
+    prefix embeddings."""
+    del prefix_embeds, window
     B, T = tokens.shape
     x = params["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
     st = init_state(cfg, B, tokens.device)

@@ -1,9 +1,17 @@
-"""Decoder-only transformer, dense family (port of the dense half of
-``repro.models.transformer``; qwen3-4b runs here).
+"""Decoder-only transformer, dense GQA and MoE variants (port of
+``repro.models.transformer``'s training forward).
+
+Covers the reference's families:
+  dense: qwen1.5-4b (qkv bias), yi-9b, qwen3-4b (qk_norm), granite-3-8b,
+         musicgen-medium (audio prefix embeds), internvl2-26b (vision
+         prefix embeds)
+  moe:   qwen3-moe-30b-a3b, granite-moe-3b-a800m
 
 Layers are STACKED as in the reference (leading L axis on every block
-leaf), so parameters carry over one to one and the bucket plan matches;
-the forward walks the stack with a Python loop where the reference scans.
+leaf, so the experts are (L, E, D, F) and (L, E, F, D)), so parameters
+carry over one to one and the bucket plan matches; the forward walks the
+stack with a Python loop where the reference scans, and sums the MoE
+layers' aux losses in layer order as its scan carry does.
 """
 from __future__ import annotations
 
@@ -12,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 
 def init_params(cfg, device="cpu", generator: Optional[torch.Generator] = None
@@ -20,14 +29,21 @@ def init_params(cfg, device="cpu", generator: Optional[torch.Generator] = None
     ``meta`` device gives shapes and dtypes without storage)."""
     dtype = getattr(torch, cfg.param_dtype)
     n, D = cfg.n_layers, cfg.d_model
+    # drawn in the order embed, attention, ffn, lm_head
+    embed = L.embed_init((cfg.padded_vocab, D), dtype, device, generator)
+    blocks = {
+        "ln1": torch.ones((n, D), dtype=dtype, device=device),
+        "ln2": torch.ones((n, D), dtype=dtype, device=device),
+        "attn": L.init_attention(cfg, n, dtype, device, generator),
+    }
+    if cfg.moe is not None:
+        blocks["moe"] = moe_lib.init_moe(cfg, n, dtype, device, generator)
+    else:
+        blocks["mlp"] = L.init_swiglu(n, D, cfg.d_ff, dtype, device,
+                                      generator)
     p = {
-        "embed": L.embed_init((cfg.padded_vocab, D), dtype, device, generator),
-        "blocks": {
-            "ln1": torch.ones((n, D), dtype=dtype, device=device),
-            "ln2": torch.ones((n, D), dtype=dtype, device=device),
-            "attn": L.init_attention(cfg, n, dtype, device, generator),
-            "mlp": L.init_swiglu(n, D, cfg.d_ff, dtype, device, generator),
-        },
+        "embed": embed,
+        "blocks": blocks,
         "ln_f": torch.ones((D,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
@@ -37,25 +53,47 @@ def init_params(cfg, device="cpu", generator: Optional[torch.Generator] = None
 
 
 def _block_apply(cfg, p, x, positions, window):
+    """One layer -> (x, its aux loss, None for a dense layer)."""
     h = x + L.attention(p["attn"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                         positions, window)
     hn = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
-    return h + L.swiglu(p["mlp"], hn)
+    if cfg.moe is not None:
+        ff, aux = moe_lib.moe_ffn(p["moe"], cfg, hn)
+        return h + ff, aux
+    return h + L.swiglu(p["mlp"], hn), None
+
+
+def embed_tokens(cfg, params, tokens: torch.Tensor,
+                 prefix_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Token embeddings in the compute dtype; with ``n_prefix_embeddings``
+    = P and ``prefix_embeds`` (B, P, D) given, those replace the first P
+    positions."""
+    dt = getattr(torch, cfg.compute_dtype)
+    x = params["embed"][tokens].to(dt)
+    if cfg.n_prefix_embeddings and prefix_embeds is not None:
+        P = cfg.n_prefix_embeddings
+        x = torch.cat([prefix_embeds.to(dt), x[:, P:]], dim=1)
+    return x
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor] = None,
             window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) -> (logits (B, S, V_padded), aux_loss ())."""
     B, S = tokens.shape
     window = window if window is not None else cfg.sliding_window
-    x = params["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
+    x = embed_tokens(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in L.unstack_layers(params["blocks"], cfg.n_layers):
-        x = _block_apply(cfg, blk, x, positions, window)
+        x, a = _block_apply(cfg, blk, x, positions, window)
+        if a is not None:
+            aux = aux + a
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = x @ params["embed"].T.to(x.dtype)
     else:
         logits = x @ params["lm_head"].to(x.dtype)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux

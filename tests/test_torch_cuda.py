@@ -219,6 +219,44 @@ def test_topk_kernels_on_the_rwkv_row_shapes(shape, k, selection):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
+@pytest.mark.parametrize("selection", ["loop", "threshold"])
+@pytest.mark.parametrize("shape,k", [
+    ((4096, 512), 5),     # granite-moe-3b-a800m's expert w_gate / w_up
+    ((4096, 1536), 15),   # its w_down and attention rows
+    ((12288, 40), 1),     # its router
+    ((4096, 768), 8),     # qwen3-moe-30b-a3b's expert w_gate / w_up
+    ((4096, 128), 1),     # its router
+    ((2048, 2048), 20),   # its w_down and attention rows
+    ((1024, 4096), 41),   # yi-9b, granite-3-8b
+    ((1024, 6144), 61),   # internvl2-26b
+])
+def test_topk_kernels_on_the_new_leaf_shapes(shape, k, selection):
+    """The per-leaf (C, k) of the MoE family and the wide dense family at
+    full width (rows cut): narrow expert rows, routers of C = 40 and 128,
+    and the loop kernel at k = 41 and 61."""
+    _need_card()
+    x, _ = _inputs(shape, 8, "normal")
+    wrapper = {"loop": row_topk_loop_cuda,
+               "threshold": row_topk_threshold_cuda}[selection]
+    for a, b in zip(wrapper(x, k), row_topk_ref(x, k)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("selection,k", [("loop", 10), ("threshold", 20)])
+def test_fused_kernel_at_the_moe_bucket(selection, k):
+    """granite-moe-3b-a800m's (935136, 1024) bucket at 8 layers: the
+    bucketed path's k and the topk preset's."""
+    _need_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    m = torch.randn((935136, 1024), generator=gen, device="cuda") * 0.01
+    g = torch.randn((935136, 1024), generator=gen, device="cuda")
+    got = fused_memsgd_cuda(m, g, 0.5, k, selection)
+    want = fused_memsgd_ref(m, g, 0.5, k)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
 def test_topk_kernels_on_unaligned_rows():
     _need_card()
     flat = torch.from_numpy(
@@ -329,6 +367,64 @@ def test_rwkv_step_on_the_card_matches_the_cpu(bucketed):
         "fused_memsgd": int(bucketed),
         "row_topk_loop": 0 if bucketed else sparse,
         "row_topk_threshold": 0}
+
+
+@pytest.mark.parametrize("bucketed", [True, False])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "qwen3-moe-30b-a3b"])
+def test_moe_step_on_the_card_matches_the_cpu(arch, bucketed):
+    """The MoE smoke configs' step: one fused launch on the bucketed path,
+    one loop top-k launch per sparse leaf on the per-leaf path."""
+    _need_card()
+    launched = _card_against_cpu(bucketed, arch=arch)
+    assert not any(launched["cpu"].values())
+    shapes = build_model(get_smoke_config(arch)).param_shapes()
+    sparse = sum(p.numel() >= SyncConfig().dense_below
+                 for p in tree_leaves(shapes))
+    assert launched["cuda"] == {
+        "fused_memsgd": int(bucketed),
+        "row_topk_loop": 0 if bucketed else sparse,
+        "row_topk_threshold": 0}
+
+
+@pytest.mark.parametrize("S", [64, 1])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "qwen3-moe-30b-a3b"])
+def test_moe_layer_on_the_card_matches_the_cpu(arch, S):
+    """moe_ffn in float32 from numpy-seeded params and tokens: the same
+    routing and capacity mask on both devices, then the output within
+    rtol 1e-5 and atol 1e-5 of its largest entry (products summed in
+    another order on the card), the aux loss within rtol 1e-5."""
+    _need_card()
+    from repro_torch.models import moe
+
+    cfg = get_smoke_config(arch)
+    m = cfg.moe
+    rng = np.random.default_rng(3)
+    D, E, Fe = cfg.d_model, m.n_experts, m.d_expert
+
+    def normal(shape, d_in):
+        return torch.from_numpy((rng.standard_normal(shape) / d_in ** 0.5)
+                                .astype(np.float32))
+
+    host = {"router": normal((D, E), D), "w_gate": normal((E, D, Fe), D),
+            "w_up": normal((E, D, Fe), D), "w_down": normal((E, Fe, D), Fe)}
+    x = torch.from_numpy(rng.standard_normal(
+        (4 if S > 1 else 16, S, D)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in host.items()}
+        xd = x.to(dev)
+        xg = xd if S > 1 else xd.reshape(1, -1, D)
+        _, top_i, _ = moe.route(p, cfg, xg)
+        keep, _ = moe.assign_slots(top_i, E, moe.capacity(xg.shape[1], cfg))
+        y, aux = moe.moe_ffn(p, cfg, xd)
+        out[dev] = (top_i.cpu(), keep.cpu(), y.cpu(), float(aux))
+    (ti_c, k_c, y_c, a_c), (ti_g, k_g, y_g, a_g) = out["cpu"], out["cuda"]
+    assert torch.equal(ti_c, ti_g) and torch.equal(k_c, k_g)
+    torch.testing.assert_close(y_g, y_c, rtol=1e-5,
+                               atol=1e-5 * float(y_c.abs().max()))
+    assert abs(a_g - a_c) <= 1e-5 * abs(a_c)
 
 
 def test_cli_trains_the_per_leaf_path_on_the_card():

@@ -1,25 +1,39 @@
-"""The port's dense decoder against ``repro.models`` on the qwen3-4b smoke
-config, from the reference's own init carried over through numpy.
+"""The port's decoder transformer against ``repro.models`` on the smoke
+configs, from the reference's own init carried over through numpy:
+qwen3-4b, and the seven architectures of the MoE and the rest of the dense
+family (``NEW_ARCHS``: qkv bias, prefix embeddings, MoE layers).
 
 Tolerances: in float32 compute the loss within rtol 1e-5 and each
 gradient leaf within rtol 1e-4 (atol 1e-4 of the leaf's largest entry:
 the two frameworks sum matrix products and reductions in other orders,
-and the reference's RMSNorm has a hand-written backward). In the default
-bfloat16 compute the loss within 2e-2: bf16 rounds at other places in the
-two frameworks.
+and the reference's RMSNorm has a hand-written backward); the MoE
+configs' aux loss within rtol 1e-5. In the default bfloat16 compute the
+loss within 2e-2: bf16 rounds at other places in the two frameworks.
+Configs, parameter trees and the conversion round trip: exact.
 """
+import dataclasses
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as REF_ARCH_IDS
+from repro.configs import get_config as ref_get_config
 from repro.configs import get_smoke_config as ref_get_smoke_config
+from repro.core.distributed import SyncConfig as RefSyncConfig
+from repro.core.distributed import message_bytes as ref_message_bytes
+from repro.launch.sharding import sync_col_axes as ref_sync_col_axes
 from repro.models import build_model as ref_build_model
 from repro.models import layers as RL
 from repro.models.model import _xent as ref_xent
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import params_from_jax, params_to_jax
+from repro_torch.core.distributed import SyncConfig, message_bytes
+from repro_torch.launch.sharding import sync_col_axes
 from repro_torch.data import token_batches
 from repro_torch.models import build_model
 from repro_torch.models import layers as L
@@ -27,12 +41,22 @@ from repro_torch.models.model import _xent
 from repro_torch.utils.tree import tree_flatten, tree_leaves
 
 ARCH = "qwen3-4b"
+# the architectures this file holds beside qwen3-4b: the MoE family and
+# the rest of the dense family
+NEW_ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b", "qwen1.5-4b",
+             "yi-9b", "granite-3-8b", "internvl2-26b", "musicgen-medium")
+
+
+@functools.cache
+def _ref_params(arch):
+    model = ref_build_model(ref_get_smoke_config(arch))
+    return jax.tree.map(np.asarray, jax.jit(model.init)(
+        jax.random.PRNGKey(0)))
 
 
 @pytest.fixture(scope="module")
 def params_np():
-    model = ref_build_model(ref_get_smoke_config(ARCH))
-    return jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(0)))
+    return _ref_params(ARCH)
 
 
 @pytest.fixture(scope="module")
@@ -40,30 +64,33 @@ def batch_np():
     return next(token_batches(512, 2, 32, seed=3))
 
 
-def _ref_loss_grads(dtype, params_np, batch_np):
+def _ref_loss_grads(dtype, params_np, batch_np, arch=ARCH):
     model = ref_build_model(
-        ref_get_smoke_config(ARCH).replace(compute_dtype=dtype))
+        ref_get_smoke_config(arch).replace(compute_dtype=dtype))
     fn = jax.jit(jax.value_and_grad(model.loss, has_aux=True))
-    (loss, _), grads = fn(jax.tree.map(jnp.asarray, params_np),
-                          {k: jnp.asarray(v) for k, v in batch_np.items()})
-    return float(loss), jax.tree.map(np.asarray, grads)
+    (loss, metrics), grads = fn(
+        jax.tree.map(jnp.asarray, params_np),
+        {k: jnp.asarray(v) for k, v in batch_np.items()})
+    return float(loss), jax.tree.map(np.asarray, grads), float(metrics["aux"])
 
 
-def _port_loss_grads(dtype, params_np, batch_np):
-    model = build_model(get_smoke_config(ARCH).replace(compute_dtype=dtype))
+def _port_loss_grads(dtype, params_np, batch_np, arch=ARCH):
+    model = build_model(get_smoke_config(arch).replace(compute_dtype=dtype))
     leaves, treedef = tree_flatten(params_from_jax(params_np))
     live = [p.requires_grad_(True) for p in leaves]
-    loss, _ = model.loss(treedef.unflatten(live),
-                         {k: torch.from_numpy(v) for k, v in batch_np.items()})
+    loss, metrics = model.loss(
+        treedef.unflatten(live),
+        {k: torch.from_numpy(v) for k, v in batch_np.items()})
     grads = torch.autograd.grad(loss, live)
-    return float(loss.detach()), [g.numpy() for g in grads]
+    return (float(loss.detach()), [g.numpy() for g in grads],
+            float(metrics["aux"].detach()))
 
 
-def test_param_tree_matches_reference():
+def _check_param_tree(arch):
     """Same keys, shapes and dtypes; the port flattens in JAX's order
     (torch tensors are leaves to jax.tree)."""
-    ref = ref_build_model(ref_get_smoke_config(ARCH)).param_shapes()
-    got = build_model(get_smoke_config(ARCH)).param_shapes()
+    ref = ref_build_model(ref_get_smoke_config(arch)).param_shapes()
+    got = build_model(get_smoke_config(arch)).param_shapes()
     assert jax.tree.structure(got) == jax.tree.structure(ref)
     leaves, _ = tree_flatten(got)
     assert all(a is b for a, b in zip(leaves, jax.tree.leaves(got)))
@@ -72,25 +99,141 @@ def test_param_tree_matches_reference():
         assert str(a.dtype) == f"torch.{b.dtype}"
 
 
-def test_convert_roundtrip_is_bitwise(params_np):
+def _check_convert_roundtrip(params_np):
     back = params_to_jax(params_from_jax(params_np))
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params_np)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
 
 
-def test_float32_loss_and_grads_match_reference(params_np, batch_np):
-    want_loss, want_grads = _ref_loss_grads("float32", params_np, batch_np)
-    loss, grads = _port_loss_grads("float32", params_np, batch_np)
+def _check_float32_loss_and_grads(params_np, batch_np, arch=ARCH):
+    want_loss, want_grads, want_aux = _ref_loss_grads(
+        "float32", params_np, batch_np, arch)
+    loss, grads, aux = _port_loss_grads("float32", params_np, batch_np, arch)
     np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
+    np.testing.assert_allclose(aux, want_aux, rtol=1e-5)
+    assert (aux > 0) == (get_smoke_config(arch).moe is not None)
     for g, r in zip(grads, jax.tree.leaves(want_grads)):
         np.testing.assert_allclose(g, r, rtol=1e-4,
                                    atol=1e-4 * float(np.abs(r).max()))
 
 
+def test_param_tree_matches_reference():
+    _check_param_tree(ARCH)
+
+
+def test_convert_roundtrip_is_bitwise(params_np):
+    _check_convert_roundtrip(params_np)
+
+
+def test_float32_loss_and_grads_match_reference(params_np, batch_np):
+    _check_float32_loss_and_grads(params_np, batch_np)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_param_tree_matches_reference(arch):
+    _check_param_tree(arch)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_convert_roundtrip_is_bitwise(arch):
+    _check_convert_roundtrip(_ref_params(arch))
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_float32_loss_and_grads_match_reference(arch, batch_np):
+    """The MoE configs' loss carries their aux loss, summed over layers."""
+    _check_float32_loss_and_grads(_ref_params(arch), batch_np, arch)
+
+
+def test_prefix_embeds_match_reference(batch_np):
+    """internvl2-26b's stub vision prefix: seeded embeddings replace the
+    first P token positions (their labels ignored)."""
+    arch = "internvl2-26b"
+    cfg = get_smoke_config(arch)
+    P = cfg.n_prefix_embeddings
+    B = batch_np["tokens"].shape[0]
+    batch = dict(batch_np)
+    batch["prefix_embeds"] = np.random.default_rng(7).standard_normal(
+        (B, P, cfg.d_model)).astype(np.float32)
+    batch["labels"] = batch["labels"].copy()
+    batch["labels"][:, :P] = -1
+    _check_float32_loss_and_grads(_ref_params(arch), batch, arch)
+    # the prefix changes the loss
+    plain = {k: v for k, v in batch.items() if k != "prefix_embeds"}
+    no_prefix, _, _ = _port_loss_grads("float32", _ref_params(arch), plain,
+                                       arch)
+    with_prefix, _, _ = _port_loss_grads("float32", _ref_params(arch), batch,
+                                         arch)
+    assert no_prefix != with_prefix
+
+
+# the rest of the dense family at full width, depth cut as on the card:
+# (layers, parameters, per-leaf bytes per step at ratio 0.01)
+FULL_WIDTH = {"qwen1.5-4b": (2, 937_192_960, 76_257_280),
+              "yi-9b": (2, 870_338_560, 69_775_360),
+              "granite-3-8b": (2, 803_229_696, 64_401_408),
+              "internvl2-26b": (1, 1_528_842_240, 121_503_744),
+              "musicgen-medium": (2, 81_796_608, 6_420_480)}
+
+
+@pytest.mark.parametrize("arch", list(FULL_WIDTH))
+def test_full_width_per_leaf_bytes_match_reference(arch):
+    """Shapes only, nothing allocated: the parameter count, the per-leaf
+    column axes and bytes per step equal the reference's and the figures
+    the card's run checks."""
+    n_layers, n_params, nbytes = FULL_WIDTH[arch]
+    model = build_model(get_config(arch).replace(n_layers=n_layers))
+    rmodel = ref_build_model(ref_get_config(arch).replace(n_layers=n_layers))
+    shapes, ref_shapes = model.param_shapes(), rmodel.param_shapes()
+    assert model.n_params() == rmodel.n_params() == n_params
+    cols, ref_cols = sync_col_axes(shapes), ref_sync_col_axes(ref_shapes)
+    assert cols == jax.tree.map(int, ref_cols)
+    got = message_bytes(SyncConfig(ratio=0.01), shapes, cols)
+    want = ref_message_bytes(RefSyncConfig(ratio=0.01), ref_shapes, ref_cols)
+    assert got == int(want) == nbytes
+
+
+def _shared_fields(x, other):
+    """``x``'s dataclass fields that ``other`` also defines, as a dict
+    (nested configs as dicts)."""
+    return {f.name: (_shared_fields(v, getattr(other, f.name))
+                     if dataclasses.is_dataclass(v) else v)
+            for f in dataclasses.fields(x) if hasattr(other, f.name)
+            for v in (getattr(x, f.name),)}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_configs_match_reference(arch):
+    """Every ported architecture's config() and smoke_config() equal the
+    reference's, field for field, over the fields both define; the port
+    leaves out only the reference's hybrid and remat fields."""
+    for ours, ref in ((get_config(arch), ref_get_config(arch)),
+                      (get_smoke_config(arch), ref_get_smoke_config(arch))):
+        assert _shared_fields(ours, ref) == _shared_fields(ref, ours)
+        missing = {f.name for f in dataclasses.fields(ref)} - {
+            f.name for f in dataclasses.fields(ours)}
+        assert missing == {"hybrid", "remat"}
+        assert ref.hybrid is None and ref.remat == "none"
+
+
+def test_registry_is_the_reference_s_but_griffin():
+    assert ARCH_IDS == tuple(a for a in REF_ARCH_IDS
+                             if a != "recurrentgemma-9b")
+    assert build_model(get_smoke_config("qwen3-moe-30b-a3b")).cfg.family \
+        == "moe"
+    hybrid = ModelConfig(arch_id="recurrentgemma-9b", family="hybrid",
+                         n_layers=2, d_model=256, n_heads=4, n_kv_heads=1,
+                         d_ff=512, vocab_size=512)
+    with pytest.raises(NotImplementedError, match="'hybrid'"):
+        build_model(hybrid)
+    with pytest.raises(ValueError, match="recurrentgemma-9b"):
+        get_config("recurrentgemma-9b")
+
+
 def test_bfloat16_loss_matches_reference(params_np, batch_np):
-    want_loss, _ = _ref_loss_grads("bfloat16", params_np, batch_np)
-    loss, grads = _port_loss_grads("bfloat16", params_np, batch_np)
+    want_loss, _, _ = _ref_loss_grads("bfloat16", params_np, batch_np)
+    loss, grads, _ = _port_loss_grads("bfloat16", params_np, batch_np)
     assert abs(loss - want_loss) <= 2e-2, (loss, want_loss)
     assert all(np.isfinite(g).all() for g in grads)
 

@@ -1,7 +1,8 @@
 """The port's train step and driver against ``repro.launch.train``.
 
-One Mem-SGD step of a smoke config (qwen3-4b, and rwkv6-3b on each path)
-in float32 compute, on the bucketed path, the per-leaf path and the topk
+One Mem-SGD step of a smoke config (qwen3-4b, and rwkv6-3b,
+granite-moe-3b-a800m and qwen3-moe-30b-a3b on each path) in float32
+compute, on the bucketed path, the per-leaf path and the topk
 preset, from the reference's init, on the reference's 1-device mesh (the
 ``tests/test_system.py`` pattern) and in the port on the CPU. Tolerances:
 loss within rtol 1e-5; the applied update (params before minus after)
@@ -48,7 +49,7 @@ from repro.launch.train import state_shardings as ref_state_shardings
 from repro.launch.sharding import sync_col_axes as ref_sync_col_axes
 from repro.models import build_model as ref_build_model
 from repro.utils.compat import make_mesh, shard_map
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.convert import (
     memory_from_jax,
     memory_to_jax,
@@ -248,6 +249,17 @@ def _main_on_the_cpu(path_args):
 
 
 @pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "qwen3-moe-30b-a3b"])
+def test_moe_one_step_matches_reference(arch, path):
+    """The MoE smoke configs (40 and 128 experts cut to 4, top-2; the 4-D
+    expert leaves and the router on each path's selection), against the
+    reference's jitted driver step, which traces them in float32."""
+    got, want = _both_steps(arch, path, 1)
+    _assert_step_agrees((got[0][0],) + got[1:], (want[0][0],) + want[1:])
+
+
+@pytest.mark.parametrize("path", list(PATHS))
 def test_rwkv_one_step_matches_reference(path):
     """rwkv6-3b's smoke config (24 leaves, 2 buckets) on each path."""
     got, want = _both_steps("rwkv6-3b", path, 1)
@@ -323,6 +335,13 @@ def test_main_trains_the_per_leaf_path_on_the_cpu():
     memory = _main_on_the_cpu([])  # no --bucketed: the per-leaf sync
     assert isinstance(memory, dict)
     model = build_model(get_smoke_config(ARCH))
+    assert [m.shape for m in tree_leaves(memory)] == \
+        [p.shape for p in tree_leaves(model.param_shapes())]
+
+
+def test_main_trains_moe_on_the_cpu():
+    memory = _main_on_the_cpu(["--arch", "granite-moe-3b-a800m"])
+    model = build_model(get_smoke_config("granite-moe-3b-a800m"))
     assert [m.shape for m in tree_leaves(memory)] == \
         [p.shape for p in tree_leaves(model.param_shapes())]
 
@@ -501,14 +520,14 @@ def test_eta_schedule_matches_reference(eta, shift):
         assert ours(t) == float(ref(jnp.asarray(t, jnp.int32)))
 
 
-def _cli_sync(argv):
-    """The sync config the port's CLI builds from ``argv`` (its own
-    parser, captured at the step)."""
+def _cli_call(argv):
+    """The model and train config the port's CLI builds from ``argv`` (its
+    own parser, captured at the call of ``train``)."""
     seen = {}
     real = train_mod.train
 
     def keep(model, tc, *a, **kw):
-        seen["sync"] = tc.sync
+        seen["model"], seen["tc"] = model, tc
         return None
 
     train_mod.train = keep
@@ -516,7 +535,18 @@ def _cli_sync(argv):
         train_mod.main(["--platform", "cpu", *argv])
     finally:
         train_mod.train = real
-    return seen["sync"]
+    return seen["model"], seen["tc"]
+
+
+def _cli_sync(argv):
+    """The sync config the port's CLI builds from ``argv``."""
+    return _cli_call(argv)[1].sync
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_cli_arch_reaches_every_ported_arch(arch):
+    model, _ = _cli_call(["--arch", arch])
+    assert model.cfg == get_smoke_config(arch)
 
 
 @pytest.mark.parametrize("argv,name,overrides", [
