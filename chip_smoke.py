@@ -25,20 +25,25 @@ Phases, each of which fails the run with a non-zero exit:
    the threshold top-k at C = 2560 and 1024 over k, and the largest k at
    which the loop wins; and the threshold kernel at k = 64 on rows of one
    exponent (its top-digit histogram in one bin) against random rows.
-   The fused kernel's threshold branch: bitwise against the plain version
-   on the fused kernel's cases above (each also at k = 20 where its k is
-   at or below the cutover) and on the branch's own edges (k = 13, 20,
-   32, 33, 256, 257 and C; all-zero and signed-zero rows; ties; eta = 0;
-   C % 4 != 0; unaligned rows; the widest row it holds); both branches
-   timed at the bucket's shape at the topk preset's k = 20 and the
-   bucketed path's k = 10, beside the plain version, the library call and
-   the bound; and the fused sweep, loop against threshold branch at
-   C = 1024 over k.
+   The fused kernel: both branches bitwise against the plain version on
+   the fused cases above (each of k <= 12 also at k = 20) and on the
+   design's edges (k = 13, 20, 32, 33, 256,
+   257 and C; a candidate list that overflows; all-zero and signed-zero
+   rows; ties; subnormal and +-inf rows; eta = 0; C % 4 != 0; unaligned
+   rows; row counts that leave the last block's warps spare; the widest
+   row each holds); both branches timed at each bucket at the bucketed
+   path's k = 10 and the topk preset's k = 20 (the median of 4 runs
+   each, in turns), beside the plain version, the library call, the
+   bound and the launch geometry; and the fused sweep, loop against
+   threshold branch at qwen3-4b's bucket (C = 1024), k = 1 ... 33, 48,
+   64, upward then downward, twice, the card's clocks sampled beside it:
+   each branch's median and range, which give FUSED_LOOP_CUTOVER.
 4. The bucketed path: ``train()`` of the bucketed Mem-SGD step on
    qwen3-4b at full width, depth cut to 4 layers, from the port's own
-   seeded init (the fused kernel's loop branch, k = 10). Then the topk
-   preset path (``SyncConfig.preset("topk", ratio=0.02)``: the packed
-   wire, the fused kernel's threshold branch at k = 20) in a 1-rank NCCL
+   seeded init (k = 10: the fused kernel's branch that the fused cutover
+   picks, the threshold branch). Then the topk preset path
+   (``SyncConfig.preset("topk", ratio=0.02)``: the packed wire, k = 20:
+   the fused threshold branch too) in a 1-rank NCCL
    process group, whose gather runs through NCCL: its bytes per step, and
    the same run with the unpacked wire giving identical losses.
 5. The per-leaf path (the train CLI's default): ``train()`` with
@@ -99,7 +104,10 @@ Phases, each of which fails the run with a non-zero exit:
 11. The MoE family (after qwen3-4b's per-leaf path): granite-moe-3b-a800m
    (40 experts, top-8) at full width, depth cut to 8 layers, on all three
    paths as qwen3-4b's (bucketed: its (935136, 1024) bucket at k = 10;
-   the topk preset packed, then unpacked: identical losses; per-leaf with
+   the same bucketed step through the ``memsgd_bucketed`` optimizer with
+   method "loop" and "threshold" (each fused branch by name), then
+   "auto": identical losses; the topk preset packed, then unpacked: identical
+   losses; per-leaf with
    both selections: 10 loop, then 10 threshold launches per step,
    identical losses); qwen3-moe-30b-a3b (128 experts, top-8) at full
    width, depth cut to 2 layers, bucketed (its (1825280, 1024) bucket,
@@ -116,13 +124,13 @@ the top-k kernels at every per-leaf (rows, C, k) of each, timed per
 per-leaf step of each and, for rwkv6-3b, over its rows narrower than 1024
 alone.
 
-Prints each architecture's launches per kernel on a
+Prints each architecture's launches per kernel in each of its runs on a
 ``{"launches_by_arch": ...}`` line, the optimizer modes' and the logistic
 regression runs' on a ``{"launches_by_path": ...}`` line, then a
 ``{"kernels": [...]}`` line (this slice's main configuration's,
-granite-moe-3b-a800m's, shapes and launches), then the card's name and
-power limit, then the result line ``{"ok": true, "device": {...}}``
-last.
+granite-moe-3b-a800m's, shapes and launches: each kernel's count from
+one run, named by ``launches_from``), then the card's name and power
+limit, then the result line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
@@ -131,6 +139,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -149,8 +158,8 @@ F32_FLOPS_PER_S = 67e12
 ARCH, N_LAYERS, BATCH, SEQ, STEPS = "qwen3-4b", 4, 4, 512, 4
 RATIO, ETA = 0.01, 0.5
 PATH_SHAPE, PATH_K = (1154560, 1024), 10  # its sparse bucket, k = 0.01 * 1024
-# the topk preset path: the same bucket at k = round(0.02 * 1024) = 20,
-# the fused kernel's threshold branch; its bytes per step on the packed
+# the topk preset path: the same bucket at k = round(0.02 * 1024) = 20;
+# its bytes per step on the packed
 # wire (the reference's bucketed_message_bytes)
 TOPK_RATIO, TOPK_K, TOPK_BYTES = 0.02, 20, 124_788_768
 # the second configuration: rwkv6-3b (RWKV-6 "Finch") at full width, depth
@@ -202,6 +211,9 @@ NARROW_C = 1024
 KERNEL_SOURCES = ("fused_memsgd", "topk_select")
 TOPK_KERNELS = ("row_topk_loop", "row_topk_threshold")
 SWEEP_KS = (1, 2, 4, 8, 12, 14, 16, 20, 24, 26, 32, 33, 48, 64)
+# the fused sweep: every k up to 32, then the list's batches
+FUSED_SWEEP_KS = tuple(range(1, 33)) + (33, 48, 64)
+FUSED_SWEEP_ROUNDS = 2
 # the single-row regime: (rows, C, k) of compression.top_k's (1, d) rows
 # at the logistic regression's widths, blockwise_top_k's (nb, 1024) rows
 # over rcv1's d, and one bounded large-k row
@@ -292,6 +304,46 @@ def zero_launch_counts() -> None:
             counts[name] = 0
 
 
+def fused_branch(k: int) -> str:
+    """The launch count's name of the fused kernel's branch that a
+    bucketed path ("auto") takes at ``k`` on the card (the fused cutover,
+    ``FUSED_LOOP_CUTOVER["cuda"]``)."""
+    from repro_torch.kernels.ops import _resolve_method
+    from repro_torch.utils.platform import fused_loop_cutover
+
+    return ("fused_memsgd"
+            if _resolve_method("auto", k, "cuda", fused_loop_cutover) == "loop"
+            else "fused_memsgd_threshold")
+
+
+def fused_path_k(selection: str) -> int:
+    """The k at which the kernels line's count of ``selection``'s branch is
+    taken: that of the path whose run it comes from (fused_path_run)."""
+    return TOPK_K if fused_path_run(selection) == "topk preset" else PATH_K
+
+
+def fused_path_run(selection: str) -> str:
+    """Which of MOE_ARCH's runs the kernels line's count of ``selection``'s
+    fused branch comes from: the bucketed path (k = 10) if "auto" sends it
+    there, else the topk preset's packed run (k = 20) if "auto" sends it
+    there, else the memsgd_bucketed optimizer's run with the branch by
+    name (k = 10)."""
+    name = {"loop": "fused_memsgd", "threshold": "fused_memsgd_threshold"}
+    if fused_branch(PATH_K) == name[selection]:
+        return "bucketed"
+    if fused_branch(TOPK_K) == name[selection]:
+        return "topk preset"
+    return f"memsgd_bucketed {selection}"
+
+
+def card_state() -> str:
+    """The card's SM clock, power draw and temperature now (nvidia-smi)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     for _ in range(warmup):
         fn()
@@ -364,78 +416,43 @@ def kernel_cases(dev):
                ETAS[arch], PATH_K)
 
 
-def phase_kernel(dev) -> dict:
-    from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
-    from repro_torch.kernels.ref import fused_memsgd_ref
-
-    worst = 0.0
-    bad = []
-    for label, m, g, eta, k in kernel_cases(dev):
-        got = fused_memsgd_cuda(m, g, eta, k)
-        want = fused_memsgd_ref(m, g, eta, k)
-        del m, g
-        torch.cuda.synchronize()
-        ok = all(same_bits(a, b) for a, b in zip(got, want))
-        err = max(float((a - b).abs().max()) if a.numel() else 0.0
-                  for a, b in zip(got[:2], want[:2]))
-        worst = max(worst, err)
-        print(f"  fused_memsgd {label}: "
-              f"{'bitwise equal' if ok else 'MISMATCH'} (max |err| {err:g})")
-        if not ok:
-            bad.append(label)
-        del got, want
-    if bad:
-        fail(f"fused_memsgd differs from its plain version on {bad}")
-
-    # times at the kernels line's bucket (MOE_ARCH's)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(13)
-    m = torch.randn(MOE_SHAPE, generator=gen, device=dev) * 0.01
-    gen.manual_seed(14)
-    g = torch.randn(MOE_SHAPE, generator=gen, device=dev)
-    R, C = MOE_SHAPE
-    ms = cuda_ms(lambda: fused_memsgd_cuda(m, g, ETA, PATH_K), iters=10,
-                 warmup=2)
-    plain_ms = cuda_ms(lambda: fused_memsgd_ref(m, g, ETA, PATH_K), iters=3)
-    library_ms = cuda_ms(lambda: fused_library(m, g, ETA, PATH_K), iters=3)
-    nbytes = 3 * R * C * 4 + R * PATH_K * 8
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = 2 * R * C / F32_FLOPS_PER_S * 1e3
-    del m, g
-    torch.cuda.empty_cache()
-    print(f"  fused_memsgd {MOE_ARCH} {MOE_SHAPE} k={PATH_K}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} "
-          f"ms, bound {max(byte_ms, op_ms):.4f} ms ({nbytes} bytes)")
-    return {
-        "name": "fused_memsgd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_memsgd.cu",
-        "replaces": "src/repro/kernels/fused_memsgd.py:61",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(byte_ms, op_ms),
-        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-        "library_ms": library_ms, "ok": True,
-    }
-
-
 def fused_edges():
     """(label, m, g as float32 numpy, eta, k) at the edges of the fused
-    kernel's threshold branch, made with numpy from a seed: k around the
-    candidate list's bound (32) and capacity (256), k = C, all-zero and
-    signed-zero rows, ties, eta = 0, C % 4 != 0, the widest row the
-    branch holds (its row and scratch fill a block's shared memory)."""
+    kernel's design, made with numpy from a seed: k around the candidate
+    list's bound (32) and capacity (256), k = C, a candidate list that
+    overflows, all-zero and signed-zero rows, ties, subnormal and +-inf
+    rows, eta = 0, C % 4 != 0, row counts that leave the last block's
+    warps spare, the widest row both branches hold (their
+    row and scratch fill a block's shared memory; the loop branch's wider
+    row is yielded by fused_branch_cases)."""
     import numpy as np
+
+    from repro_torch.kernels.fused_memsgd import MAX_COLS
 
     rng = np.random.default_rng(21)
 
     def f32(*shape):
         return rng.standard_normal(shape).astype(np.float32)
 
+    def signs(shape):
+        return np.where(rng.random(shape) < 0.5, -1.0, 1.0)
+
     for k in (13, 20, 32, 33, 256, 257):
         yield f"k={k} (8,1024)", f32(8, 1024), f32(8, 1024), 0.37, k
     yield "k=C (4,300) k=300", f32(4, 300), f32(4, 300), 0.37, 300
+    # lane l of a warp reads the columns j with (j // 4) % 32 == l: every
+    # entry of lane l above every entry of lane l + 1, so ~800 entries
+    # pass the lanes' bound and the candidate list overflows
+    lane = (np.arange(1024) // 4) % 32
+    x = ((32 - lane) * 10.0 + rng.random((4, 1024))) * signs((4, 1024))
+    for k in (10, 20):
+        yield (f"lane-stratified, list overflows (4,1024) k={k}",
+               x.astype(np.float32), np.zeros((4, 1024), np.float32), 1.0, k)
     z = np.zeros((6, 256), np.float32)
     z[:, 1::3] = -0.0
     yield "all-zero rows, signed zeros (6,256) k=20", z, z.copy(), 0.5, 20
+    yield ("all-zero rows, signed zeros (6,256) k=10", z, z.copy(), 0.5,
+           10)
     m = np.zeros((6, 256), np.float32)
     m[:, ::5] = -0.0
     m[:3, 7], m[:3, 200] = 2.0, -1.0
@@ -446,81 +463,121 @@ def fused_edges():
     yield ("tie-heavy small integers (8,1024) k=20",
            rng.integers(-3, 4, (8, 1024)).astype(np.float32),
            np.zeros((8, 1024), np.float32), 1.0, 20)
+    bits = rng.integers(1, 2**23, (6, 1024), dtype=np.uint32)
+    bits |= (rng.random((6, 1024)) < 0.5).astype(np.uint32) << 31
+    yield ("subnormal only (6,1024) k=10", bits.view(np.float32),
+           np.zeros((6, 1024), np.float32), 1.0, 10)
+    x = f32(6, 1024)
+    x[0, [5, 900, 1023]] = [np.inf, -np.inf, np.inf]
+    x[1, rng.choice(1024, 40, replace=False)] = np.inf * signs(40)
+    yield "rows holding +-inf (6,1024) k=20", x, np.zeros_like(x), 1.0, 20
     yield "eta=0 (8,1024) k=20", f32(8, 1024), f32(8, 1024), 0.0, 20
     yield "C % 4 != 0 (6,1023) k=26", f32(6, 1023), f32(6, 1023), 0.37, 26
-    yield ("widest row (2,57344) k=300", f32(2, 57344), f32(2, 57344),
-           0.37, 300)
+    yield ("spare warps (5,1024) k=10", f32(5, 1024), f32(5, 1024),
+           0.37, 10)
+    yield ("spare warps (30001,1024) k=20", f32(30001, 1024),
+           f32(30001, 1024), 0.37, 20)
+    C = MAX_COLS["threshold"]
+    yield (f"widest row (2,{C}) k=300", f32(2, C), f32(2, C), 0.37, 300)
 
 
-def fused_threshold_cases(dev):
-    """Yields (label, m, g, eta, k) on the card for the threshold branch:
-    the fused kernel's cases (each also at k = 20 where its k is at or below
-    the cutover), the unaligned rows, and the branch's edges."""
-    from repro_torch.utils.platform import topk_loop_cutover
+def fused_branch_cases(dev):
+    """Yields (label, m, g, eta, k, branches) on the card, each case for
+    both branches unless ``branches`` says otherwise: the fused kernel's
+    cases (each of k <= 12 also at the topk preset's k = 20), the
+    unaligned rows, the design's edges and the loop branch's widest
+    row."""
+    import numpy as np
 
-    cut = topk_loop_cutover("cuda")
+    from repro_torch.kernels.fused_memsgd import MAX_COLS, SELECTIONS
+
     for label, m, g, eta, k in kernel_cases(dev):
-        yield label, m, g, eta, k
+        yield label, m, g, eta, k, SELECTIONS
         C = m.shape[1]
-        if k <= cut and C > cut:
+        if k <= 12 and C > 12:
             yield (label.replace(f"k={k}", f"k={min(C, TOPK_K)}"), m, g, eta,
-                   min(C, TOPK_K))
+                   min(C, TOPK_K), SELECTIONS)
     for label, m, g, eta, k in fused_edges():
         yield label, torch.from_numpy(m).to(dev), torch.from_numpy(g).to(
-            dev), eta, k
+            dev), eta, k, SELECTIONS
+    C = MAX_COLS["loop"]
+    rng = np.random.default_rng(23)
+    m, g = (torch.from_numpy(rng.standard_normal((2, C)).astype(np.float32))
+            .to(dev) for _ in range(2))
+    yield f"widest loop row (2,{C}) k=300", m, g, 0.37, 300, ("loop",)
 
 
-def phase_fused_threshold(dev) -> dict:
-    """The fused kernel's threshold branch bitwise against the plain
-    version, then both branches timed at each configuration's bucket
-    (k = 10 and the topk preset's k = 20; the entry keeps the main path's
-    figures at k = 20) beside the plain version, the library call and the
-    bound, then the
-    fused sweep (loop against threshold branch at C = 1024 over k)."""
-    from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
+def fused_plan_text(selection: str, rows: int, cols: int) -> str:
+    """The fused kernel's launch geometry for an (rows, cols) input."""
+    from repro_torch.kernels.fused_memsgd import launch_geometry
+
+    g = launch_geometry(selection, rows, cols, torch.device("cuda", 0))
+    return (f"{selection} {g.blocks} blocks x {g.warps_per_block} warps, "
+            f"{g.smem_bytes} B shared memory per block, {g.warps_per_sm} "
+            f"warps per SM")
+
+
+def bucket_inputs(dev, gen, i, shape):
+    """The i-th bucket's (m, g), made from a seed on the card."""
+    gen.manual_seed(13 + 2 * i)
+    m = torch.randn(shape, generator=gen, device=dev) * 0.01
+    gen.manual_seed(14 + 2 * i)
+    return m, torch.randn(shape, generator=gen, device=dev)
+
+
+def phase_fused(dev) -> list:
+    """The fused kernel's two branches: bitwise against the plain version
+    on every case of fused_branch_cases; then both branches timed at each
+    configuration's bucket (the bucketed path's k = 10 and the topk
+    preset's k = 20) beside the plain version, the library call, the bound
+    and the launch geometry; and the fused sweep (loop against threshold
+    branch at C = 1024 over k). Returns the branches' entries of the
+    kernels line, at the kernels line's (MOE_ARCH's) bucket, each at the
+    k of the path that takes it (fused_path_k)."""
+    from repro_torch.kernels.fused_memsgd import SELECTIONS, fused_memsgd_cuda
     from repro_torch.kernels.ref import fused_memsgd_ref
-    from repro_torch.utils.platform import topk_loop_cutover
+    from repro_torch.utils.platform import fused_loop_cutover
 
-    worst = 0.0
+    worst = {sel: 0.0 for sel in SELECTIONS}
     bad = []
-    n = 0
-    for label, m, g, eta, k in fused_threshold_cases(dev):
-        got = fused_memsgd_cuda(m, g, eta, k, "threshold")
+    n = collections.Counter()
+    for label, m, g, eta, k, branches in fused_branch_cases(dev):
         want = fused_memsgd_ref(m, g, eta, k)
-        del m, g
-        torch.cuda.synchronize()
-        ok = all(same_bits(a, b) for a, b in zip(got, want))
-        err = max(float((a - b).abs().max()) if a.numel() else 0.0
-                  for a, b in zip(got[:2], want[:2]))
-        worst = max(worst, err)
-        n += 1
-        print(f"  fused_memsgd threshold {label}: "
-              f"{'bitwise equal' if ok else 'MISMATCH'} (max |err| {err:g})")
-        if not ok:
-            bad.append(label)
-        del got, want
+        verdicts = []
+        for sel in branches:
+            got = fused_memsgd_cuda(m, g, eta, k, sel)
+            torch.cuda.synchronize()
+            ok = all(same_bits(a, b) for a, b in zip(got, want))
+            err = max(float((a - b).abs().max()) if a.numel() else 0.0
+                      for a, b in zip(got[:2], want[:2]))
+            worst[sel] = max(worst[sel], err)
+            n[sel] += 1
+            verdicts.append(f"{sel} {'bitwise equal' if ok else 'MISMATCH'}"
+                            f" (max |err| {err:g})")
+            if not ok:
+                bad.append(f"{sel} {label}")
+            del got
+        print(f"  fused_memsgd {label}: {'; '.join(verdicts)}")
+        del m, g, want
     if bad:
-        fail(f"fused_memsgd's threshold branch differs from its plain "
-             f"version on {bad}")
-    print(f"  fused_memsgd threshold branch: {n} cases bitwise equal")
+        fail(f"fused_memsgd differs from its plain version on {bad}")
+    print(f"  fused_memsgd: {dict(n)} cases bitwise equal (by branch)")
     torch.cuda.empty_cache()
 
-    # both branches at each configuration's bucket, in turns: at the topk
-    # preset's k = 20 and at the bucketed path's k = 10; the branch's entry
-    # below keeps the kernels line's (MOE_ARCH's) figures at k = 20
+    # both branches at each configuration's bucket, in turns, at the
+    # bucketed path's k = 10 and the topk preset's k = 20: the median of 4
+    # runs each (a pair's first run can be cold)
     gen = torch.Generator(device=dev)
-    entry = None
+    entries = {}
     for i, (arch, shape) in enumerate(BUCKETS.items()):
-        seed = 13 + 2 * i
-        gen.manual_seed(seed)
-        m = torch.randn(shape, generator=gen, device=dev) * 0.01
-        gen.manual_seed(seed + 1)
-        g = torch.randn(shape, generator=gen, device=dev)
+        m, g = bucket_inputs(dev, gen, i, shape)
         R, C = shape
+        eta = ETAS[arch]
+        print(f"  fused_memsgd {arch} {shape}: "
+              f"{'; '.join(fused_plan_text(s, R, C) for s in SELECTIONS)}")
         for k in (PATH_K, TOPK_K):
             t = collections.defaultdict(list)
-            eta = ETAS[arch]
-            for sel in ("threshold", "loop", "loop", "threshold"):
+            for sel in ("threshold", "loop", "loop", "threshold") * 2:
                 t[sel].append(cuda_ms(
                     lambda: fused_memsgd_cuda(m, g, eta, k, sel), iters=10,
                     warmup=2))
@@ -531,49 +588,66 @@ def phase_fused_threshold(dev) -> dict:
             nbytes = 3 * R * C * 4 + R * k * 8
             byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
             op_ms = 2 * R * C / F32_FLOPS_PER_S * 1e3
-            ms = sum(t["threshold"]) / 2
+            bound_ms = max(byte_ms, op_ms)
+            med = {sel: statistics.median(ts) for sel, ts in t.items()}
             print(f"  fused_memsgd {arch} {shape} k={k}: threshold branch "
-                  f"{' / '.join(f'{x:.4f}' for x in t['threshold'])} ms, "
-                  f"loop branch {' / '.join(f'{x:.4f}' for x in t['loop'])} "
-                  f"ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} "
-                  f"ms, bound {max(byte_ms, op_ms):.4f} ms ({nbytes} bytes)")
-            if arch == MOE_ARCH and k == TOPK_K:
-                entry = (ms, plain_ms, library_ms, byte_ms, op_ms)
+                  f"{' / '.join(f'{x:.4f}' for x in t['threshold'])} ms "
+                  f"(median {med['threshold'] / bound_ms:.3f}x bound), loop "
+                  f"branch {' / '.join(f'{x:.4f}' for x in t['loop'])} ms "
+                  f"(median {med['loop'] / bound_ms:.3f}x bound), plain "
+                  f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({nbytes} bytes)")
+            for sel in SELECTIONS:
+                if arch != MOE_ARCH or fused_path_k(sel) != k:
+                    continue
+                entries[sel] = {
+                    "ms": med[sel], "plain_ms": plain_ms,
+                    "bound_ms": bound_ms,
+                    "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                    "library_ms": library_ms}
         del m, g
         torch.cuda.empty_cache()
-    ms, plain_ms, library_ms, byte_ms, op_ms = entry
 
-    # the fused sweep: loop against threshold branch at C = 1024, in turns
-    Rs = 40960 * 2560 // 1024
-    gen.manual_seed(1024)
-    m = torch.randn((Rs, 1024), generator=gen, device=dev) * 0.01
-    g = torch.randn((Rs, 1024), generator=gen, device=dev)
-    last, streak = 0, True
-    for k in SWEEP_KS:
-        tk = collections.Counter()
-        for sel in ("loop", "threshold", "threshold", "loop"):
-            tk[sel] += cuda_ms(lambda: fused_memsgd_cuda(m, g, ETA, k, sel),
-                               iters=10) / 2
-        streak = streak and tk["loop"] < tk["threshold"]
-        if streak:
-            last = k
-        print(f"  fused sweep ({Rs},1024) k={k}: loop {tk['loop']:.4f} ms, "
-              f"threshold {tk['threshold']:.4f} ms -> "
-              f"{'loop' if tk['loop'] < tk['threshold'] else 'threshold'}")
+    # the fused sweep: loop against threshold branch at qwen3-4b's bucket
+    # (C = 1024, the buckets' width), in turns at each k (loop, threshold,
+    # threshold, loop; then the other way round), over k upward and then
+    # downward, FUSED_SWEEP_ROUNDS times, so that the card's drift over a
+    # long load (its clocks, sampled before and after each pass) falls on
+    # every k and branch alike; each branch's median run and its range
+    m, g = bucket_inputs(dev, gen, 0, PATH_SHAPE)
+    tk = {k: collections.defaultdict(list) for k in FUSED_SWEEP_KS}
+    for rnd in range(FUSED_SWEEP_ROUNDS):
+        first, second = SELECTIONS if rnd % 2 == 0 else SELECTIONS[::-1]
+        for ks in (FUSED_SWEEP_KS, FUSED_SWEEP_KS[::-1]):
+            print(f"  fused sweep pass starts: {card_state()}")
+            for k in ks:
+                for sel in (first, second, second, first):
+                    tk[k][sel].append(cuda_ms(
+                        lambda: fused_memsgd_cuda(m, g, ETA, k, sel),
+                        iters=10, warmup=2))
+            print(f"  fused sweep pass ends: {card_state()}")
     del m, g
     torch.cuda.empty_cache()
-    print(f"fused sweep: the loop branch wins at every swept k up to {last} "
-          f"at C = 1024; TOPK_LOOP_CUTOVER['cuda'] = "
-          f"{topk_loop_cutover('cuda')}")
-    return {
-        "name": "fused_memsgd_threshold", "route": "cuda",
+    cut = fused_loop_cutover("cuda")
+    for k, t in tk.items():
+        med = {sel: statistics.median(t[sel]) for sel in SELECTIONS}
+        win = min(SELECTIONS, key=med.get)
+        auto = "threshold" if k > cut else "loop"
+        print(f"  fused sweep {PATH_SHAPE} k={k}: loop {med['loop']:.4f} ms "
+              f"({min(t['loop']):.4f}-{max(t['loop']):.4f}), threshold "
+              f"{med['threshold']:.4f} ms ({min(t['threshold']):.4f}-"
+              f"{max(t['threshold']):.4f}) -> {win} by "
+              f"{abs(med['loop'] / med['threshold'] - 1) * 100:.2f}%; auto "
+              f"takes {auto}")
+    print(f"fused sweep: FUSED_LOOP_CUTOVER['cuda'] = {cut} (the loop "
+          "branch for k <= it)")
+    return [{
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_memsgd.cu",
         "replaces": "src/repro/kernels/fused_memsgd.py:61",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(byte_ms, op_ms),
-        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-        "library_ms": library_ms, "ok": True,
-    }
+        "max_abs_err": worst[sel], **entries[sel], "ok": True,
+    } for name, sel in (("fused_memsgd", "loop"),
+                        ("fused_memsgd_threshold", "threshold"))]
 
 
 def leaf_row_shapes(arch=ARCH, n_layers=N_LAYERS) -> collections.Counter:
@@ -981,9 +1055,9 @@ def full_model(arch=ARCH, n_layers=N_LAYERS):
 
 
 def phase_bucketed(dev, arch=ARCH, n_layers=N_LAYERS, shape=PATH_SHAPE,
-                   nbytes=None) -> int:
-    """The bucketed path of ``arch``; returns the fused kernel's launches
-    in its run."""
+                   nbytes=None) -> dict:
+    """The bucketed path of ``arch`` (the fused kernel's branch that the
+    fused cutover picks at k = 10); returns the launches in its run."""
     from repro_torch.core.buckets import make_plan
     from repro_torch.core.distributed import SyncConfig, bucketed_message_bytes
     from repro_torch.launch.train import TrainConfig
@@ -1008,19 +1082,85 @@ def phase_bucketed(dev, arch=ARCH, n_layers=N_LAYERS, shape=PATH_SHAPE,
         fail(f"{arch} bucketed path: {wire} B/step, expected {nbytes}")
     _, counts, params, memory, batches = run_path(
         f"{arch} bucketed path", model, tc, dev,
-        {"fused_memsgd": STEPS * len(sparse)})
+        {fused_branch(tc.sync.k_for(tc.sync.bucket_cols)):
+         STEPS * len(sparse)})
     profile_steps(model, tc, params, memory, batches, dev)
-    return counts["fused_memsgd"]
+    return counts
+
+
+def phase_memsgd_bucketed(dev, arch=MOE_ARCH, n_layers=MOE_LAYERS) -> dict:
+    """``core.memsgd.memsgd_bucketed``, the reference's bucketed Mem-SGD
+    optimizer (Algorithm 1 over the bucket plan, one fused launch per
+    sparse bucket a step), on ``arch`` at full width for STEPS steps with
+    each fused method it takes: "loop" and "threshold" (each branch by
+    name) and "auto" (the fused cutover's branch at k = 10). Every run
+    starts from the seeded init on the same batches; their losses must be
+    finite from near ln V, falling and identical. Every launch count is
+    zeroed just before each run and read just after. Returns each run's
+    launches, by method."""
+    from repro_torch.core.memsgd import constant_eta, memsgd_bucketed
+    from repro_torch.data import DeviceBatcher, token_batches
+    from repro_torch.utils.tree import tree_flatten, tree_leaves
+
+    model = full_model(arch, n_layers)
+    lnv = math.log(model.cfg.vocab_size)
+    losses, launches = {}, {}
+    for method in ("loop", "threshold", "auto"):
+        label = f"{arch} memsgd_bucketed(method={method!r})"
+        params = model.init(seed=0, device=dev)
+        leaves, treedef = tree_flatten(params)
+        tx = memsgd_bucketed(RATIO, constant_eta(ETAS[arch]), method=method)
+        state = tx.init(params)
+        batches = iter(DeviceBatcher(
+            token_batches(model.cfg.vocab_size, BATCH, SEQ, seed=0), dev))
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        run = []
+        for _ in range(STEPS):
+            live = [p.detach().requires_grad_(True) for p in leaves]
+            loss, metrics = model.loss(treedef.unflatten(live), next(batches))
+            grads = torch.autograd.grad(loss, live)
+            del live, loss
+            updates, state = tx.update(treedef.unflatten(list(grads)), state)
+            del grads
+            with torch.no_grad():
+                for p, u in zip(leaves, tree_leaves(updates)):
+                    p.add_(u.to(p.dtype))
+            run.append(metrics["xent"].detach())  # the loss train() logs
+            del updates, metrics
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        losses[method] = [float(x) for x in run]
+        branch = {"loop": "fused_memsgd",
+                  "threshold": "fused_memsgd_threshold"}.get(
+                      method, fused_branch(round(RATIO * 1024)))
+        want = {name: STEPS if name == branch else 0 for name in counts}
+        print(f"{label}: losses {losses[method]}; launches {counts}")
+        if counts != want:
+            fail(f"{label}: launches {counts}, expected {want}")
+        run = losses[method]
+        if not (all(math.isfinite(x) for x in run)
+                and lnv - 1 <= run[0] <= lnv + 2 and run[-1] < run[0]):
+            fail(f"{label}: losses {run} not finite from ln V = {lnv:.3f} "
+                 "and falling")
+        launches[method] = counts
+        del params, leaves, state, batches
+        torch.cuda.empty_cache()
+    if len(set(map(tuple, losses.values()))) != 1:
+        fail(f"{arch} memsgd_bucketed: the methods' losses differ: {losses}")
+    print(f"{arch} memsgd_bucketed: the loop, threshold and auto methods' "
+          "losses are identical")
+    return launches
 
 
 def phase_topk_preset(dev, arch=ARCH, n_layers=N_LAYERS,
-                      nbytes=None) -> int:
+                      nbytes=None) -> dict:
     """The topk preset path (the reference's headline configuration) in a
     1-rank NCCL process group: the packed wire gathered through NCCL, the
-    fused kernel's threshold branch once per step; then the same run on
-    the unpacked wire must give identical losses. ``nbytes``: wire ->
-    expected bytes per step. Returns the threshold branch's launches in
-    the packed run."""
+    fused kernel's branch that the fused cutover picks at k = 20 once per
+    step; then the same run on the unpacked wire must give identical
+    losses. ``nbytes``: wire -> expected bytes per step. Returns the
+    launches in the packed run."""
     import tempfile
 
     import torch.distributed as dist
@@ -1031,7 +1171,7 @@ def phase_topk_preset(dev, arch=ARCH, n_layers=N_LAYERS,
 
     model = full_model(arch, n_layers)
     plan = make_plan(model.param_shapes())
-    losses, launches = {}, 0
+    losses, launches = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
                                 rank=0, world_size=1)
@@ -1050,9 +1190,9 @@ def phase_topk_preset(dev, arch=ARCH, n_layers=N_LAYERS,
                                  sync=sync)
                 losses[wire], counts, params, memory, batches = run_path(
                     f"{arch} topk preset path, {wire} wire", model, tc, dev,
-                    {"fused_memsgd_threshold": STEPS})
+                    {fused_branch(sync.k_for(sync.bucket_cols)): STEPS})
                 if wire == "packed":
-                    launches = counts["fused_memsgd_threshold"]
+                    launches = counts
                     profile_steps(model, tc, params, memory, batches, dev)
                 del params, memory, batches
                 torch.cuda.empty_cache()
@@ -1298,7 +1438,8 @@ def phase_opt_modes(dev, calls) -> dict:
             bucketed = path == "bucketed"
             tc = TrainConfig(optimizer=mode, eta=eta, sync=SyncConfig(
                 ratio=RATIO, bucketed=bucketed))
-            expect = ({"fused_memsgd": STEPS} if bucketed else
+            expect = ({fused_branch(tc.sync.k_for(tc.sync.bucket_cols)):
+                       STEPS} if bucketed else
                       {name: STEPS * n for name, n in selection_launches(
                           "argmax_onehot", calls).items()})
             _, counts, params, memory, batches = run_path(
@@ -1549,23 +1690,25 @@ def phase_small(dev) -> None:
 
 
 def phase_moe(dev, leaf_shapes) -> dict:
-    """The MoE family: MOE_ARCH on the bucketed path, the topk preset
-    (packed, then unpacked) and the per-leaf path with both selections;
-    QMOE_ARCH on the bucketed and the per-leaf path. Returns each
-    architecture's launches."""
-    moe = {"fused_memsgd": phase_bucketed(
-        dev, MOE_ARCH, MOE_LAYERS, MOE_SHAPE, MOE_BYTES["bucketed"])}
-    moe["fused_memsgd_threshold"] = phase_topk_preset(
-        dev, MOE_ARCH, MOE_LAYERS,
-        {"packed": MOE_BYTES["topk packed"],
-         "unpacked": MOE_BYTES["topk unpacked"]})
-    moe.update(phase_leaf(dev, leaf_shapes[MOE_ARCH], MOE_ARCH, MOE_LAYERS,
-                          nbytes=MOE_BYTES["per-leaf"]))
-    qmoe = {"fused_memsgd": phase_bucketed(
-        dev, QMOE_ARCH, QMOE_LAYERS, QMOE_SHAPE, QMOE_BYTES["bucketed"])}
-    qmoe.update(phase_leaf(dev, leaf_shapes[QMOE_ARCH], QMOE_ARCH,
-                           QMOE_LAYERS, ("argmax_onehot",),
-                           QMOE_BYTES["per-leaf"]))
+    """The MoE family: MOE_ARCH on the bucketed path, through the
+    ``memsgd_bucketed`` optimizer with each fused method, on the topk
+    preset (packed, then unpacked) and on the per-leaf path with both
+    selections; QMOE_ARCH on the bucketed and the per-leaf path. Returns
+    each architecture's launches, by path."""
+    moe = {"bucketed": phase_bucketed(dev, MOE_ARCH, MOE_LAYERS, MOE_SHAPE,
+                                      MOE_BYTES["bucketed"])}
+    for method, counts in phase_memsgd_bucketed(dev).items():
+        moe[f"memsgd_bucketed {method}"] = counts
+    moe["topk preset"] = phase_topk_preset(
+        dev, MOE_ARCH, MOE_LAYERS, {"packed": MOE_BYTES["topk packed"],
+                                    "unpacked": MOE_BYTES["topk unpacked"]})
+    moe["per-leaf"] = phase_leaf(dev, leaf_shapes[MOE_ARCH], MOE_ARCH,
+                                 MOE_LAYERS, nbytes=MOE_BYTES["per-leaf"])
+    qmoe = {"bucketed": phase_bucketed(dev, QMOE_ARCH, QMOE_LAYERS,
+                                       QMOE_SHAPE, QMOE_BYTES["bucketed"]),
+            "per-leaf": phase_leaf(dev, leaf_shapes[QMOE_ARCH], QMOE_ARCH,
+                                   QMOE_LAYERS, ("argmax_onehot",),
+                                   QMOE_BYTES["per-leaf"])}
     return {MOE_ARCH: moe, QMOE_ARCH: qmoe}
 
 
@@ -1575,32 +1718,38 @@ def main() -> None:
     phase_build()
     leaf_shapes = {arch: leaf_row_shapes(arch, depth)
                    for arch, depth in DEPTHS.items()}
-    kernels = ([phase_kernel(dev), phase_fused_threshold(dev)]
-               + phase_topk(dev, leaf_shapes))
+    kernels = phase_fused(dev) + phase_topk(dev, leaf_shapes)
     phase_cutover(dev)
     phase_single_row(dev)
-    launches = {"fused_memsgd": phase_bucketed(dev),
-                "fused_memsgd_threshold": phase_topk_preset(dev)}
-    launches.update(phase_leaf(dev, leaf_shapes[ARCH]))
-    by_arch = {ARCH: launches, **phase_moe(dev, leaf_shapes)}
+    by_arch = {ARCH: {"bucketed": phase_bucketed(dev),
+                      "topk preset": phase_topk_preset(dev),
+                      "per-leaf": phase_leaf(dev, leaf_shapes[ARCH])},
+               **phase_moe(dev, leaf_shapes)}
     for arch, (depth, nbytes) in DENSE.items():
-        by_arch[arch] = phase_leaf(dev, leaf_shapes[arch], arch, depth,
-                                   ("argmax_onehot",), nbytes, DENSE_STEPS)
+        by_arch[arch] = {"per-leaf": phase_leaf(
+            dev, leaf_shapes[arch], arch, depth, ("argmax_onehot",), nbytes,
+            DENSE_STEPS)}
     by_path = {"optimizer modes": phase_opt_modes(dev, leaf_shapes[ARCH])}
-    rwkv = {"fused_memsgd": phase_bucketed(
-        dev, RWKV_ARCH, RWKV_LAYERS, RWKV_SHAPE, RWKV_BYTES["bucketed"])}
-    rwkv["fused_memsgd_threshold"] = phase_topk_preset(
-        dev, RWKV_ARCH, RWKV_LAYERS,
-        {"packed": RWKV_BYTES["topk packed"],
-         "unpacked": RWKV_BYTES["topk unpacked"]})
-    rwkv.update(phase_leaf(dev, leaf_shapes[RWKV_ARCH], RWKV_ARCH,
-                           RWKV_LAYERS, ("argmax_onehot",),
-                           RWKV_BYTES["per-leaf"]))
-    by_arch[RWKV_ARCH] = rwkv
+    by_arch[RWKV_ARCH] = {
+        "bucketed": phase_bucketed(dev, RWKV_ARCH, RWKV_LAYERS, RWKV_SHAPE,
+                                   RWKV_BYTES["bucketed"]),
+        "topk preset": phase_topk_preset(
+            dev, RWKV_ARCH, RWKV_LAYERS,
+            {"packed": RWKV_BYTES["topk packed"],
+             "unpacked": RWKV_BYTES["topk unpacked"]}),
+        "per-leaf": phase_leaf(dev, leaf_shapes[RWKV_ARCH], RWKV_ARCH,
+                               RWKV_LAYERS, ("argmax_onehot",),
+                               RWKV_BYTES["per-leaf"])}
     by_path["logistic regression"] = phase_logreg(dev)
     phase_small(dev)
+    # each kernel's count from one of MOE_ARCH's runs: a fused branch's
+    # from the run that takes it (fused_path_run), a top-k kernel's from
+    # the per-leaf run of its selection
+    runs = {"fused_memsgd": fused_path_run("loop"),
+            "fused_memsgd_threshold": fused_path_run("threshold")}
     for k in kernels:
-        k["launches"] = by_arch[MOE_ARCH][k["name"]]
+        k["launches_from"] = runs.get(k["name"], "per-leaf")
+        k["launches"] = by_arch[MOE_ARCH][k["launches_from"]][k["name"]]
     print(json.dumps({"launches_by_arch": by_arch}))
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": kernels}))

@@ -14,7 +14,8 @@ A sparse bucket or leaf runs the reference's stage order (its
 ``_sparse_stages``): select -> encode -> gather -> decode -> densify -> / W.
 ``bucketed_sync_gradients`` runs steps 2, 3 and 6 as one fused CUDA
 kernel per sparse bucket (``kernels.fused_memsgd_update``, its branch
-resolved from k as the reference's ``method="auto"``): its residual m' is
+resolved from k by ``method="auto"``, from the fused kernel's own measured
+cutover on the card): its residual m' is
 the reference's ``u - own`` (up to the sign of zero at selected entries).
 ``sparse_sync_gradients``, the per-leaf path (the train CLI's default),
 forms u per leaf, moves the leaf's column axis last and selects with

@@ -11,89 +11,144 @@
 //
 // Bound: device-memory bandwidth. The function must read m and g and write
 // m' (3 * R * C * 4 bytes) plus vals and idx (R * k * 8 bytes); its
-// arithmetic is 2 flops per element. The design reads m and g once, keeps
+// arithmetic is 2 flops per element. The kernel reads m and g once, keeps
 // the row's u in shared memory for the selection, and writes m', vals and
-// idx once, so no intermediate touches device memory.
+// idx once, so no intermediate touches device memory. What kept its first
+// form (one warp per row, four rows per block, the lanes' loads) at half
+// the bound on the loop branch was the select: k passes over the row,
+// O(k * C) key builds and compares, which at k = 10 took as long as the
+// bytes.
 //
-// Design: one warp per row, up to four rows per block, each row's u in
-// its warp's shared-memory buffer. Two selections, one kernel template
-// each, as the reference's kernel takes selection="loop" or "threshold":
+// Design:
+//   * the selection: topk::loop_row (loop) or topk::threshold_row
+//     (threshold), the selects of row_topk_loop and row_topk_threshold:
+//     two passes over the row, then the k rounds of a warp max, or the
+//     radix select, on a candidate list of at most 256 keys. Either
+//     returns the k-th selected key; keys are unique, so the selected set
+//     is exactly the keys >= it;
+//   * a warp for every row, each with a row buffer in shared memory and
+//     its scratch after it (the candidate list, the threshold branch's
+//     256-bin histogram, an mbarrier); the warps per block are the fewest
+//     that let the most warps reside on an SM (row_buffer.cuh plan_grid);
+//   * lane 0 brings the row's m in by one bulk copy
+//     (cp.async.bulk ... mbarrier::complete_tx::bytes) while the lanes
+//     issue 16-byte loads of the whole of g (8 float4 a lane at C = 1024)
+//     before they wait on it, then add g into the staged m in place
+//     (u = m + eta*g): both rows are in flight at once;
+//   * m' = u with the keys >= kth zeroed, written by the lanes' 16-byte
+//     stores.
+// Rows with C % 4 != 0, or m, g or m' not 16-byte aligned, take the lanes'
+// plain loads and stores instead. The widest row is what one warp's buffer
+// and scratch leave of a block's 227 KB: u is never in device memory, so a
+// wider row is refused.
 //
-//   loop       topk::loop_select (topk_common.cuh): k rounds of a
-//              warp-wide max over a 64-bit key (|u| bits << 32 | ~column),
-//              where the largest magnitude wins, and on equal magnitude the
-//              lowest column (largest ~column) wins. Round r keeps only keys
-//              below round r-1's winner, so no entry is marked or
-//              rewritten. O(k * C) shared-memory reads per row: the choice
-//              for small k.
-//   threshold  topk::threshold_row, the select of topk_select.cu's
-//              row_topk_threshold: two passes over the row, then a radix
-//              select of the k-th largest magnitude on a candidate list
-//              (a per-warp list of 256 keys and a 256-bin histogram after
-//              the row buffer), the ties in column order and an O(k^2)
-//              rank; k > 256 orders through vals and idx in device memory.
-//
-// Either returns the k-th selected key; keys are unique, so the selected
-// set is exactly the keys >= it, and m' zeroes those. The threshold
-// branch's scratch (3 KB per warp) lowers its widest row to C = 57344;
-// the loop branch's is C = 58112 (227 KB per block).
-//
-// Rows need no padding: a warp past the last row returns. Each row buffer
-// starts 16-byte aligned, so the selects read it as float4s.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 3;
+// PERF.md): 62 registers (loop) and 56 (threshold), no
+// spills, 32 and 30 warps per SM. At qwen3-4b's (1154560, 1024) bucket,
+// k = 10, the median of 8 runs: the loop branch 4.636 ms, the threshold
+// branch 4.623 ms, against a 4.263 ms bytes bound (1.09x and 1.08x); the
+// first form took 8.42-8.61 ms (loop) and 4.79 ms (threshold).
+// Alternatives that lost on the same card (PERF.md): a persistent
+// grid walking rows with a stride of its warps (~10% slower), g
+// bulk-copied into a second buffer (up to 6% slower, half the widest
+// row), m' zeroed in place and bulk-stored (no faster).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_buffer.cuh"
 #include "topk_common.cuh"
 
 namespace {
 
-constexpr int kMaxRowsPerBlock = 4;
-constexpr size_t kSmemLimit = 232448;  // 227 KB, the most a block may use
-constexpr size_t kDefaultSmem = 48 * 1024;
-// the threshold branch's scratch after each row buffer: the candidate
-// list (64-bit keys) and the radix histogram
-constexpr size_t kListBytes = topk::kListCap * 8;
-constexpr size_t kWarpScratch = kListBytes + topk::kHistBins * 4;
-static_assert(kWarpScratch % 16 == 0, "row buffers stay 16-byte aligned");
+using row_buffer::row_stride;
 
-// A row buffer's size: the row's bytes rounded up to 16.
-__host__ __device__ __forceinline__ size_t row_stride(int cols) {
-  return (static_cast<size_t>(cols) * sizeof(float) + 15) & ~size_t{15};
+// a warp's scratch after its row buffer: the candidate list (64-bit keys),
+// the threshold branch's radix histogram, the mbarrier (padded so that the
+// next warp's row buffer stays 16-byte aligned)
+constexpr size_t kListBytes = topk::kListCap * 8;
+constexpr size_t kHistBytes = topk::kHistBins * 4;
+constexpr size_t kBarBytes = 16;
+
+__host__ __device__ constexpr size_t scratch_bytes(bool threshold) {
+  return kListBytes + (threshold ? kHistBytes : 0) + kBarBytes;
 }
+static_assert(scratch_bytes(false) % 16 == 0 &&
+                  scratch_bytes(true) % 16 == 0,
+              "row buffers stay 16-byte aligned");
 
 __device__ __forceinline__ float fused_u(float m, float g, float eta) {
   return __fadd_rn(m, __fmul_rn(eta, g));
 }
 
+__device__ __forceinline__ float4 fused_u4(float4 m, float4 g, float eta) {
+  return make_float4(fused_u(m.x, g.x, eta), fused_u(m.y, g.y, eta),
+                     fused_u(m.z, g.z, eta), fused_u(m.w, g.w, eta));
+}
+
+// u's four entries from column c with the selected ones (keys >= kth) set
+// to +0.0
+__device__ __forceinline__ float4 residual4(float4 v, int c,
+                                            unsigned long long kth) {
+  if (topk::sel_key(v.x, c) >= kth) v.x = 0.0f;
+  if (topk::sel_key(v.y, c + 1) >= kth) v.y = 0.0f;
+  if (topk::sel_key(v.z, c + 2) >= kth) v.z = 0.0f;
+  if (topk::sel_key(v.w, c + 3) >= kth) v.w = 0.0f;
+  return v;
+}
+
+// `bulk`: every row of m, g and m' is 16-byte aligned (C % 4 == 0 and the
+// three tensors aligned), so rows move by a bulk copy and 16-byte
+// accesses; otherwise the lanes copy each row with plain loads and stores.
 template <bool kThreshold>
 __global__ void fused_memsgd_kernel(const float* __restrict__ m,
                                     const float* __restrict__ g, float eta,
-                                    int rows, int cols, int k, bool vec,
+                                    int rows, int cols, int k, bool bulk,
                                     float* __restrict__ new_m,
                                     float* __restrict__ vals,
                                     int* __restrict__ idx) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (row >= rows) return;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (row >= rows) return;  // the last block's spare warps
   const size_t stride = row_stride(cols);
-  unsigned char* own = smem + warp * (stride + (kThreshold ? kWarpScratch : 0));
+  unsigned char* own = smem + warp * (stride + scratch_bytes(kThreshold));
   float* u = reinterpret_cast<float*>(own);
+  unsigned char* scratch = own + stride;
+  auto* list = reinterpret_cast<unsigned long long*>(scratch);
+  auto* hist = reinterpret_cast<unsigned int*>(scratch + kListBytes);
+  auto* bar = reinterpret_cast<uint64_t*>(
+      scratch + kListBytes + (kThreshold ? kHistBytes : 0));
   const size_t base = static_cast<size_t>(row) * cols;
 
-  // u = m + eta * g, read once from device memory (16-byte loads when
-  // the host found every row 16-byte aligned)
-  if (vec) {
-    const float4* m4 = reinterpret_cast<const float4*>(m + base);
+  // u = m + eta * g, in the row buffer
+  if (bulk) {
+    if (lane == 0) {
+      row_buffer::bar_init(bar);
+      row_buffer::bulk_load(u, m + base, static_cast<uint32_t>(cols) * 4u,
+                            bar);
+    }
+    __syncwarp();
+    // 8 float4 of g per lane in flight before the wait on m
+    constexpr int kAhead = 8;
+    const int n4 = cols >> 2;
     const float4* g4 = reinterpret_cast<const float4*>(g + base);
     float4* u4 = reinterpret_cast<float4*>(u);
-    for (int j = lane; j < (cols >> 2); j += 32) {
-      const float4 a = m4[j];
-      const float4 b = g4[j];
-      u4[j] = make_float4(fused_u(a.x, b.x, eta), fused_u(a.y, b.y, eta),
-                          fused_u(a.z, b.z, eta), fused_u(a.w, b.w, eta));
+    for (int q0 = 0; q0 < n4; q0 += 32 * kAhead) {
+      float4 gr[kAhead];
+#pragma unroll
+      for (int t = 0; t < kAhead; ++t) {
+        const int q = q0 + lane + 32 * t;
+        if (q < n4) gr[t] = g4[q];
+      }
+      if (q0 == 0) row_buffer::bar_wait(bar, 0);
+#pragma unroll
+      for (int t = 0; t < kAhead; ++t) {
+        const int q = q0 + lane + 32 * t;
+        if (q < n4) u4[q] = fused_u4(u4[q], gr[t], eta);
+      }
     }
   } else {
     for (int j = lane; j < cols; j += 32) {
@@ -102,30 +157,23 @@ __global__ void fused_memsgd_kernel(const float* __restrict__ m,
   }
   __syncwarp();
 
-  // the selection; kth is the k-th selected key (loop: the last winner)
+  // the selection; kth is the k-th selected key
   const size_t out = static_cast<size_t>(row) * k;
   unsigned long long kth;
   if constexpr (kThreshold) {
-    auto* list = reinterpret_cast<unsigned long long*>(own + stride);
-    auto* hist = reinterpret_cast<unsigned int*>(own + stride + kListBytes);
     kth = topk::threshold_row(u, cols, k, true, lane, list, hist, vals + out,
                               idx + out);
   } else {
-    kth = topk::loop_select(u, cols, k, lane, vals + out, idx + out);
+    kth = topk::loop_row(u, cols, k, true, lane, list, vals + out,
+                         idx + out);
   }
 
-  // m' = u with the k selected entries (keys >= kth) zeroed
-  if (vec) {
+  // m' = u with the selected entries (keys >= kth) zeroed
+  if (bulk) {
     const float4* u4 = reinterpret_cast<const float4*>(u);
-    float4* n4 = reinterpret_cast<float4*>(new_m + base);
-    for (int j = lane; j < (cols >> 2); j += 32) {
-      float4 v = u4[j];
-      const int c = j << 2;
-      if (topk::sel_key(v.x, c) >= kth) v.x = 0.0f;
-      if (topk::sel_key(v.y, c + 1) >= kth) v.y = 0.0f;
-      if (topk::sel_key(v.z, c + 2) >= kth) v.z = 0.0f;
-      if (topk::sel_key(v.w, c + 3) >= kth) v.w = 0.0f;
-      n4[j] = v;
+    float4* n4p = reinterpret_cast<float4*>(new_m + base);
+    for (int q = lane; q < (cols >> 2); q += 32) {
+      n4p[q] = residual4(u4[q], q << 2, kth);
     }
   } else {
     for (int j = lane; j < cols; j += 32) {
@@ -135,36 +183,38 @@ __global__ void fused_memsgd_kernel(const float* __restrict__ m,
   }
 }
 
-// Launches one branch's kernel on `stream`: as many rows per block (up
-// to four) as their buffers fit in a block's shared memory. Returns 0
-// (cudaSuccess) or the CUDA error code of the refused launch; it does not
-// synchronise.
-template <bool kThreshold>
-int launch(const float* m, const float* g, float eta, int rows, int cols,
-           int k, float* new_m, float* vals, int* idx, cudaStream_t stream) {
+using KernelFn = void (*)(const float*, const float*, float, int, int, int,
+                          bool, float*, float*, int*);
+
+// How one branch's kernel is launched on (rows, cols).
+struct Plan {
+  KernelFn fn;
+  row_buffer::Grid grid;
+};
+
+cudaError_t make_plan(bool threshold, int rows, int cols, Plan* p) {
+  p->fn = threshold ? fused_memsgd_kernel<true> : fused_memsgd_kernel<false>;
+  return row_buffer::plan_grid(reinterpret_cast<const void*>(p->fn),
+                               row_stride(cols) + scratch_bytes(threshold),
+                               rows, &p->grid);
+}
+
+// Plans and launches one branch on `stream`. Returns 0 (cudaSuccess) or
+// the CUDA error code of the refused launch; it does not synchronise.
+int launch(bool threshold, const float* m, const float* g, float eta,
+           int rows, int cols, int k, float* new_m, float* vals, int* idx,
+           cudaStream_t stream) {
   if (rows <= 0) return cudaSuccess;
   if (cols <= 0 || k < 1 || k > cols) return cudaErrorInvalidValue;
-  const size_t per_warp = row_stride(cols) + (kThreshold ? kWarpScratch : 0);
-  int rows_per_block = kMaxRowsPerBlock;
-  while (rows_per_block > 1 && rows_per_block * per_warp > kSmemLimit) {
-    rows_per_block >>= 1;
-  }
-  const size_t smem = rows_per_block * per_warp;
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_memsgd_kernel<kThreshold>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const bool vec = (cols & 3) == 0 &&
-                   ((reinterpret_cast<uintptr_t>(m) |
-                     reinterpret_cast<uintptr_t>(g) |
-                     reinterpret_cast<uintptr_t>(new_m)) & 15) == 0;
-  const unsigned int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  fused_memsgd_kernel<kThreshold>
-      <<<blocks, 32 * rows_per_block, smem, stream>>>(m, g, eta, rows, cols,
-                                                      k, vec, new_m, vals, idx);
+  Plan p;
+  const cudaError_t e = make_plan(threshold, rows, cols, &p);
+  if (e != cudaSuccess) return e;
+  const bool bulk = (cols & 3) == 0 &&
+                    ((reinterpret_cast<uintptr_t>(m) |
+                      reinterpret_cast<uintptr_t>(g) |
+                      reinterpret_cast<uintptr_t>(new_m)) & 15) == 0;
+  p.fn<<<p.grid.blocks, 32 * p.grid.warps_per_block, p.grid.smem_bytes,
+         stream>>>(m, g, eta, rows, cols, k, bulk, new_m, vals, idx);
   return cudaGetLastError();
 }
 
@@ -174,7 +224,7 @@ int launch(const float* m, const float* g, float eta, int rows, int cols,
 extern "C" int fused_memsgd_f32(const float* m, const float* g, float eta,
                                 int rows, int cols, int k, float* new_m,
                                 float* vals, int* idx, cudaStream_t stream) {
-  return launch<false>(m, g, eta, rows, cols, k, new_m, vals, idx, stream);
+  return launch(false, m, g, eta, rows, cols, k, new_m, vals, idx, stream);
 }
 
 // The threshold branch (selection="threshold").
@@ -182,5 +232,23 @@ extern "C" int fused_memsgd_threshold_f32(const float* m, const float* g,
                                           float eta, int rows, int cols,
                                           int k, float* new_m, float* vals,
                                           int* idx, cudaStream_t stream) {
-  return launch<true>(m, g, eta, rows, cols, k, new_m, vals, idx, stream);
+  return launch(true, m, g, eta, rows, cols, k, new_m, vals, idx, stream);
+}
+
+// Writes the launch plan of a branch (the loop's when threshold == 0) for
+// an (rows, cols) input on the current device into out: warps per block,
+// 1 (the row is always in shared memory), blocks, shared-memory bytes per
+// block, warps resident per SM.
+extern "C" int fused_memsgd_plan(int threshold, int rows, int cols,
+                                 int* out) {
+  if (rows <= 0 || cols <= 0) return cudaErrorInvalidValue;
+  Plan p;
+  const cudaError_t e = make_plan(threshold != 0, rows, cols, &p);
+  if (e != cudaSuccess) return e;
+  out[0] = p.grid.warps_per_block;
+  out[1] = 1;
+  out[2] = p.grid.blocks;
+  out[3] = p.grid.smem_bytes;
+  out[4] = p.grid.warps_per_sm;
+  return cudaSuccess;
 }

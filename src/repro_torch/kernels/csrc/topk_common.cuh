@@ -12,10 +12,8 @@
 // memory), and agree on every result through warp intrinsics. A row
 // pointer may point into shared or device memory.
 //
-// fused_memsgd.cu uses sel_key with loop_select (k rounds over the whole
-// row) or threshold_row. topk_select.cu uses loop_row and threshold_row
-// below, which read the row in two passes and then work on a short
-// candidate list:
+// Both kernels' sources use loop_row and threshold_row below, which read
+// the row in two passes and then work on a short candidate list:
 //   1. every lane's largest key; if the row's largest magnitude is 0 the
 //      answer is columns 0..k-1 (every entry ties), written at once;
 //   2. for k <= 32, the k-th largest of the 32 lanes' largest keys is a
@@ -53,40 +51,6 @@ __device__ __forceinline__ unsigned int mag_bits(float v) {
 __device__ __forceinline__ unsigned long long sel_key(float v, int j) {
   return (static_cast<unsigned long long>(mag_bits(v)) << 32) |
          static_cast<unsigned int>(~j);
-}
-
-__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(kFullMask, v, off);
-    v = o > v ? o : v;
-  }
-  return v;
-}
-
-// The loop select (the reference's _topk_loop): k rounds of a warp-wide
-// max over the keys, round r taking the largest key below round r-1's
-// winner, so no entry is marked or rewritten. Lane 0 writes the pairs in
-// contract order. Returns the last winner's key: the selected set is
-// exactly the keys >= it. O(k * C) reads of the row.
-__device__ __forceinline__ unsigned long long loop_select(
-    const float* x, int cols, int k, int lane, float* vals, int* idx) {
-  unsigned long long prev = ~0ull;
-  for (int r = 0; r < k; ++r) {
-    unsigned long long best = 0ull;  // below every real key
-    for (int j = lane; j < cols; j += 32) {
-      const unsigned long long key = sel_key(x[j], j);
-      if (key < prev && key > best) best = key;
-    }
-    best = warp_max(best);
-    if (lane == 0) {
-      const int j = static_cast<int>(~static_cast<unsigned int>(best));
-      vals[r] = x[j];
-      idx[r] = j;
-    }
-    prev = best;
-  }
-  return prev;
 }
 
 // Writes the k selected entries (keys >= kth) in contract order (the
@@ -144,7 +108,8 @@ __device__ __forceinline__ unsigned long long max_key(unsigned long long a,
 
 // The warp-wide max of a key as two 32-bit reductions (one REDUX each):
 // the largest magnitude bits, then the largest ~column among the lanes
-// that hold them. Equal to warp_max, in fewer instructions.
+// that hold them: the same as a max over 64-bit shuffles, in fewer
+// instructions.
 __device__ __forceinline__ unsigned long long warp_max_redux(
     unsigned long long v) {
   const unsigned int hi = static_cast<unsigned int>(v >> 32);
@@ -323,23 +288,23 @@ __device__ __forceinline__ void write_slots(const float* r, int r0, int n,
 // kb (<= 32) rounds of the loop select over a candidate list: a
 // warp-wide max over the n keys of `list` (all below `prev`, at least kb
 // of them), each round taking the largest key below the winner before
-// it. Each lane first sorts its keys (list[lane], list[lane + 32], ...)
-// in registers, largest first, so that a round is one warp max over the
-// lanes' heads, after which the winner's lane drops its head. Lane t
-// keeps round t's key; returns the last round's.
-__device__ __forceinline__ unsigned long long loop_rounds_list(
+// it. Each lane first sorts its keys (list[lane], list[lane + 32], ...,
+// at most kSlots of them) in registers, largest first, so that a round is
+// one warp max over the lanes' heads, after which the winner's lane drops
+// its head. Lane t keeps round t's key; returns the last round's.
+template <int kSlots>
+__device__ __forceinline__ unsigned long long loop_rounds_slots(
     const unsigned long long* list, int n, int kb, int lane,
     unsigned long long prev, unsigned long long& mine) {
-  constexpr int kPerLane = kListCap / 32;
-  unsigned long long c[kPerLane];
+  unsigned long long c[kSlots];
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
+  for (int i = 0; i < kSlots; ++i) {
     c[i] = lane + 32 * i < n ? list[lane + 32 * i] : 0ull;
   }
 #pragma unroll
-  for (int phase = 0; phase < kPerLane; ++phase) {  // odd-even transposition
+  for (int phase = 0; phase < kSlots; ++phase) {  // odd-even transposition
 #pragma unroll
-    for (int i = phase & 1; i + 1 < kPerLane; i += 2) {
+    for (int i = phase & 1; i + 1 < kSlots; i += 2) {
       const unsigned long long hi = max_key(c[i], c[i + 1]);
       c[i + 1] = c[i] ^ c[i + 1] ^ hi;
       c[i] = hi;
@@ -350,11 +315,23 @@ __device__ __forceinline__ unsigned long long loop_rounds_list(
     if (lane == t) mine = prev;
     if (c[0] == prev) {  // one lane: the keys are distinct and nonzero
 #pragma unroll
-      for (int i = 0; i + 1 < kPerLane; ++i) c[i] = c[i + 1];
-      c[kPerLane - 1] = 0ull;
+      for (int i = 0; i + 1 < kSlots; ++i) c[i] = c[i + 1];
+      c[kSlots - 1] = 0ull;
     }
   }
   return prev;
+}
+
+// loop_rounds_slots with as few slots a lane as the list's n keys need
+// (a short list, as at k = 10 of a 1024-wide row, skips most of the sort
+// and of each round's shift).
+__device__ __forceinline__ unsigned long long loop_rounds_list(
+    const unsigned long long* list, int n, int kb, int lane,
+    unsigned long long prev, unsigned long long& mine) {
+  if (n <= 32) return loop_rounds_slots<1>(list, n, kb, lane, prev, mine);
+  if (n <= 64) return loop_rounds_slots<2>(list, n, kb, lane, prev, mine);
+  if (n <= 128) return loop_rounds_slots<4>(list, n, kb, lane, prev, mine);
+  return loop_rounds_slots<kListCap / 32>(list, n, kb, lane, prev, mine);
 }
 
 // The largest key below `prev` in the lane's share (0 if none): four
@@ -565,10 +542,12 @@ __device__ __forceinline__ bool all_zero(unsigned long long mine) {
 //     to the candidate list;
 //   then kb rounds of the warp max over the list, or, if the list would
 //   overflow, over the row (loop_rounds_row).
-__device__ __forceinline__ void loop_row(const float* r, int cols, int k,
-                                         bool vec, int lane,
-                                         unsigned long long* list,
-                                         float* vals, int* idx) {
+// Returns the last winner, the k-th selected key (the same in every
+// lane), as threshold_row does: the selection is exactly the row's keys
+// >= it. For an all-zero row that is column k-1's key at magnitude 0.
+__device__ __forceinline__ unsigned long long loop_row(
+    const float* r, int cols, int k, bool vec, int lane,
+    unsigned long long* list, float* vals, int* idx) {
   unsigned long long prev = ~0ull;
   for (int r0 = 0; r0 < k; r0 += 32) {
     const int kb = min(32, k - r0);
@@ -577,7 +556,7 @@ __device__ __forceinline__ void loop_row(const float* r, int cols, int k,
                 : lane_max_below(r, cols, vec, lane, prev);
     if (r0 == 0 && all_zero(top)) {
       write_leading(r, k, lane, vals, idx);
-      return;
+      return static_cast<unsigned int>(~(k - 1));
     }
     const unsigned long long bound = lane_bound(top, kb);
     const int n =
@@ -598,6 +577,7 @@ __device__ __forceinline__ void loop_row(const float* r, int cols, int k,
     write_slots(r, r0, kb, mine, lane, vals, idx);
     __syncwarp();  // the list is read before it is refilled
   }
+  return prev;
 }
 
 // The threshold select of one row into (vals, idx) (k pairs).
@@ -611,7 +591,7 @@ __device__ __forceinline__ void loop_row(const float* r, int cols, int k,
 // k > kListCap orders the k pairs through (vals, idx) in device memory
 // (write_selected), as the list cannot hold them.
 // Returns the k-th selected key (the same in every lane): the selection is
-// exactly the row's keys >= it, as loop_select's last winner is. For an
+// exactly the row's keys >= it, as loop_row's last winner is. For an
 // all-zero row that is column k-1's key at magnitude 0.
 __device__ __forceinline__ unsigned long long threshold_row(
     const float* r, int cols, int k, bool vec, int lane,

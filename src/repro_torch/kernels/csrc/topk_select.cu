@@ -57,11 +57,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_buffer.cuh"
 #include "topk_common.cuh"
 
 namespace {
 
-constexpr int kMaxWarpsPerBlock = 8;
+using row_buffer::bar_init;
+using row_buffer::bar_wait;
+using row_buffer::bulk_load;
+using row_buffer::row_stride;
+
 // a warp's scratch after its row buffer: the candidate list (64-bit
 // keys), the radix histogram, the mbarrier (padded so that the next
 // warp's row buffer stays 16-byte aligned)
@@ -69,52 +74,6 @@ constexpr size_t kListBytes = topk::kListCap * 8;
 constexpr size_t kHistBytes = topk::kHistBins * 4;
 constexpr size_t kWarpScratch = kListBytes + kHistBytes + 16;
 static_assert(kWarpScratch % 16 == 0, "row buffers stay 16-byte aligned");
-
-// A row buffer's size: the row's bytes rounded up to 16.
-__host__ __device__ __forceinline__ size_t row_stride(int cols) {
-  return (static_cast<size_t>(cols) * sizeof(float) + 15) & ~size_t{15};
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// Lane 0 copies `bytes` from src to dst; bar completes when they landed.
-// The proxy fence orders the warp's earlier reads of dst (made visible by
-// the caller's __syncwarp) before the asynchronous copy overwrites it.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Every lane waits until bar's phase `parity` has completed.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
 
 // Walks this warp's rows (the global warp index, then every grid's worth
 // of warps further) and calls select(r, row, list, hist) on each: r is the
@@ -142,7 +101,6 @@ __device__ __forceinline__ void walk_rows(const float* __restrict__ x,
   if (kSmem && bulk) {
     if (lane == 0) {
       bar_init(bar);
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
       if (first < rows) bulk_load(buf, x + first * cols, bytes, bar);
     }
     __syncwarp();
@@ -211,52 +169,31 @@ struct Plan {
 };
 
 // The row buffer in shared memory if a warp's buffer and scratch fit what
-// one block may use, else the device-memory form; the fewest warps per
-// block (up to kMaxWarpsPerBlock) that let the most warps reside on an
-// SM, as cudaOccupancyMaxActiveBlocksPerMultiprocessor counts them (shared
-// memory, registers, the SM's block and warp limits); enough blocks for
-// every row to have its warp, at most what the SMs hold at once.
+// one block may use, else the device-memory form; then the persistent
+// grid: the fewest warps per block that let the most warps reside on an
+// SM (row_buffer::plan_grid), and enough blocks for every row to have its
+// warp, at most what the SMs hold at once.
 cudaError_t make_plan(KernelFn in_smem, KernelFn in_device, int rows,
                       int cols, Plan* p) {
-  int dev = 0, optin = 0, sms = 0;
+  int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
     e = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
   if (e != cudaSuccess) return e;
   const size_t whole = row_stride(cols) + kWarpScratch;
   p->in_smem = whole <= static_cast<size_t>(optin);
   p->fn = p->in_smem ? in_smem : in_device;
-  const size_t per_warp = p->in_smem ? whole : kWarpScratch;
-  e = cudaFuncSetAttribute(p->fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           optin);
+  row_buffer::Grid grid;
+  e = row_buffer::plan_grid(reinterpret_cast<const void*>(p->fn),
+                            p->in_smem ? whole : kWarpScratch, rows, &grid);
   if (e != cudaSuccess) return e;
-  int best = 0, best_warps = 0, best_blocks = 0;
-  for (int w = 1; w <= kMaxWarpsPerBlock; ++w) {
-    const size_t smem = w * per_warp;
-    if (smem > static_cast<size_t>(optin)) break;
-    int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p->fn, 32 * w,
-                                                      smem);
-    if (e != cudaSuccess) return e;
-    if (per_sm * w > best) {
-      best = per_sm * w;
-      best_warps = w;
-      best_blocks = per_sm;
-    }
-  }
-  if (best == 0) return cudaErrorInvalidConfiguration;
-  p->warps_per_block = best_warps;
-  p->smem_bytes = static_cast<int>(best_warps * per_warp);
-  p->warps_per_sm = best;
-  const long long want = (static_cast<long long>(rows) + best_warps - 1) /
-                         best_warps;
-  const long long most = static_cast<long long>(sms) * best_blocks;
-  p->blocks = static_cast<int>(want < most ? want : most);
+  p->warps_per_block = grid.warps_per_block;
+  p->blocks = grid.blocks < grid.resident_blocks ? grid.blocks
+                                                 : grid.resident_blocks;
+  p->smem_bytes = grid.smem_bytes;
+  p->warps_per_sm = grid.warps_per_sm;
   return cudaSuccess;
 }
 

@@ -4,8 +4,9 @@ Port of the Pallas TPU kernel ``fused_memsgd_pallas``
 (``src/repro/kernels/fused_memsgd.py``): u = m + eta*g, the per-row
 top-|.|-k of u, and the residual memory m' = u with the selected entries
 zeroed, in one pass over m and g. Like the reference's kernel it has two
-selections: ``"loop"`` (k rounds of a warp max) and ``"threshold"`` (the
-radix select of ``row_topk_threshold``); both give the same bits.
+selections: ``"loop"`` (k rounds of a warp max on a candidate list, the
+select of ``row_topk_loop``) and ``"threshold"`` (the radix select of
+``row_topk_threshold``); both give the same bits.
 
 ``fused_memsgd_cuda`` routes on where its tensors lie: a CPU tensor goes
 to the plain version (``ref.fused_memsgd_ref``) whatever the selection; a
@@ -13,6 +14,9 @@ CUDA tensor launches the selection's kernel, or the wrapper raises.
 ``fused_memsgd_cuda.launches`` counts every launch and
 ``SELECTION_LAUNCHES`` the launches of each selection (plain integers;
 reset them to 0 to count one run).
+
+The source plans each launch from the card's limits, and
+``launch_geometry`` reports that plan.
 """
 from __future__ import annotations
 
@@ -24,27 +28,54 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import eta32, fused_memsgd_ref
+from repro_torch.kernels.topk_select import Geometry
 
 SELECTIONS = ("loop", "threshold")
-# the largest row one block holds in shared memory (227 KB of float32;
-# the threshold branch keeps 3 KB of scratch beside it), and the most
-# rows a grid of int32 row indices addresses
-MAX_COLS = {"loop": 232448 // 4, "threshold": (232448 - 3072) // 4}
+# a warp's shared memory beside its row buffer: the candidate list (2 KB),
+# the threshold branch's histogram (1 KB), the mbarrier (padded to 16)
+SCRATCH_BYTES = {"loop": 2048 + 16, "threshold": 2048 + 1024 + 16}
+SMEM_PER_BLOCK = 232448    # 227 KB, the most one block may use
+# the widest row one warp's buffer (the row's bytes rounded up to 16) and
+# scratch fit in a block, and the most rows a grid of int32 row indices
+# addresses
+MAX_COLS = {s: (SMEM_PER_BLOCK - SCRATCH_BYTES[s]) // 16 * 16 // 4
+            for s in SELECTIONS}
 MAX_ROWS = 2**31 - 1
 
 SELECTION_LAUNCHES = {name: 0 for name in SELECTIONS}
 
 
 @functools.cache
-def _kernel(selection: str):
+def _kernels():
     lib = _build.load("fused_memsgd")
-    fn = (lib.fused_memsgd_threshold_f32 if selection == "threshold"
-          else lib.fused_memsgd_f32)
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, p, p, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+    p, i = ctypes.c_void_p, ctypes.c_int
+    args = [p, p, ctypes.c_float, i, i, i, p, p, p, p]
+    fns = {"loop": lib.fused_memsgd_f32,
+           "threshold": lib.fused_memsgd_threshold_f32,
+           "plan": lib.fused_memsgd_plan}
+    for name in SELECTIONS:
+        fns[name].argtypes = args
+    fns["plan"].argtypes = [i, i, i, p]
+    for fn in fns.values():
+        fn.restype = ctypes.c_int
+    return fns
+
+
+def launch_geometry(selection: str, rows: int, cols: int,
+                    device: torch.device) -> Geometry:
+    """The plan with which ``selection``'s branch would launch on an
+    (rows, cols) float32 input on a CUDA ``device``: a warp for every row,
+    always in shared memory (``in_smem``)."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        rc = _kernels()["plan"](int(selection == "threshold"), rows, cols,
+                                out)
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_memsgd ({selection}) launch plan failed: CUDA error {rc}")
+    w, in_smem, blocks, smem, per_sm = out
+    return Geometry(warps_per_block=w, in_smem=bool(in_smem), blocks=blocks,
+                    smem_bytes=smem, warps_per_sm=per_sm)
 
 
 def check_inputs(m: torch.Tensor, g: torch.Tensor, k: int,
@@ -104,7 +135,7 @@ def fused_memsgd_cuda(m: torch.Tensor, g: torch.Tensor, eta, k: int,
         return new_m, vals, idx
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream(m.device).cuda_stream
-        rc = _kernel(selection)(
+        rc = _kernels()[selection](
             m.data_ptr(), g.data_ptr(), eta32(eta), R, C, k,
             new_m.data_ptr(), vals.data_ptr(), idx.data_ptr(), stream,
         )

@@ -12,8 +12,10 @@
 Every method gives the same contract (decreasing |v|, ties to the lowest
 index), so all of them return bitwise-identical outputs. On CPU tensors
 every method runs the plain version (``ref.row_topk_ref`` /
-``ref.fused_memsgd_ref``). ``fused_memsgd_update`` resolves ``method`` as
-``row_topk`` does and runs the fused kernel's branch of that name.
+``ref.fused_memsgd_ref``). ``fused_memsgd_update`` runs the fused
+kernel's branch of the method's name; its "auto" reads the fused kernel's
+own measured cutover (``platform.fused_loop_cutover``), since its two
+branches are not the top-k kernels and were measured on their own.
 """
 from __future__ import annotations
 
@@ -27,16 +29,19 @@ from repro_torch.kernels.topk_select import (
     row_topk_loop_cuda,
     row_topk_threshold_cuda,
 )
-from repro_torch.utils.platform import topk_loop_cutover
+from repro_torch.utils.platform import fused_loop_cutover, topk_loop_cutover
 
 # the reference's Pallas tile height; see fused_memsgd_update
 DEFAULT_ROW_BLOCK = 8
 METHODS = ("auto", "loop", "threshold")
 
 
-def _resolve_method(method: str, k: int, device="cpu") -> str:
+def _resolve_method(method: str, k: int, device="cpu",
+                    cutover=topk_loop_cutover) -> str:
+    """The kernel that ``method`` names at ``k`` on ``device``: "auto"
+    takes the threshold kernel for k above ``cutover(device)``."""
     if method == "auto":
-        return "threshold" if k > topk_loop_cutover(device) else "loop"
+        return "threshold" if k > cutover(device) else "loop"
     if method not in METHODS:
         raise ValueError(f"unknown top-k method {method!r}")
     return method
@@ -67,7 +72,7 @@ def fused_memsgd_update(
     and masks the ragged edge itself, so no padding is needed and the
     value does not change the result.
     """
-    selection = _resolve_method(method, k, m.device)
+    selection = _resolve_method(method, k, m.device, fused_loop_cutover)
     if row_block < 1:
         raise ValueError(f"row_block must be >= 1, got {row_block}")
     return fused_memsgd_cuda(m, g, eta, k, selection)

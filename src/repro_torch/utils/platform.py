@@ -9,6 +9,9 @@ of running somewhere else. ``"cpu"`` runs every kernel's plain version.
 select (a radix select of the k-th largest magnitude over the same
 candidates), per device type; ``kernels.ops.row_topk(method="auto")``
 and the per-leaf sync's ``threshold_onehot`` selection read it.
+``fused_loop_cutover(device)`` is the same for the two branches of the
+fused Mem-SGD kernel, which ``kernels.ops.fused_memsgd_update(method=
+"auto")`` reads (the bucketed paths).
 """
 from __future__ import annotations
 
@@ -23,13 +26,30 @@ PLATFORMS = ("cuda", "cpu")
 # does). "cuda" is the loop-against-threshold sweep that chip_smoke.py
 # prints for the kernels of csrc/topk_select.cu (two passes over the row,
 # then the rounds or the radix digits on a candidate list): on an NVIDIA
-# H100 80GB HBM3 at 700 W the loop kernel wins at every swept k up to 16
-# at C = 2560 and up to 12 at C = 1024, where the threshold kernel already
-# wins at 14, by a few percent or less either side (PERF.md). Both
-# kernels' times grow slowly with k, so the choice moves little time.
+# H100 80GB HBM3 at 700 W the loop kernel wins at every swept k up to 26
+# at C = 2560 and at C = 1024 and loses from k = 32 (PERF.md), since its
+# rounds sort and shift only the list slots a lane holds (it was 12
+# before that).
 TOPK_LOOP_CUTOVER = {
     "cpu": 4,
-    "cuda": 12,
+    "cuda": 26,
+}
+
+# Largest k at which the fused kernel's loop branch still beats its
+# threshold branch. "cpu" is the reference's entry, as above (its fused
+# update resolves "auto" from the same table as its top-k). "cuda" is the
+# fused sweep that chip_smoke.py prints for csrc/fused_memsgd.cu at
+# qwen3-4b's (1154560, 1024) bucket, the median of 8 runs a branch at each
+# k: on an NVIDIA H100 80GB HBM3 at 700 W the threshold branch's median is
+# 0.1-0.5% lower at every k up to 29 (the bucketed path's k = 10, the
+# topk preset's k = 20) in two runs of the sweep, the two overlap at
+# 30-32, and the threshold branch is 2-17% faster above 32, where the
+# loop branch repeats its two passes per 32 rounds (PERF.md). So the card
+# takes the threshold branch at every k; the loop branch runs when it is
+# asked for by name.
+FUSED_LOOP_CUTOVER = {
+    "cpu": 4,
+    "cuda": 0,
 }
 
 
@@ -51,3 +71,11 @@ def topk_loop_cutover(device="cpu") -> int:
     if dev.type not in TOPK_LOOP_CUTOVER:
         raise ValueError(f"no top-k cutover for device {dev}")
     return TOPK_LOOP_CUTOVER[dev.type]
+
+
+def fused_loop_cutover(device="cpu") -> int:
+    """The fused kernel's loop/threshold cutover for ``device``'s type."""
+    dev = torch.device(device)
+    if dev.type not in FUSED_LOOP_CUTOVER:
+        raise ValueError(f"no fused cutover for device {dev}")
+    return FUSED_LOOP_CUTOVER[dev.type]

@@ -19,8 +19,10 @@ from repro_torch.core.distributed import SyncConfig
 from repro_torch.data import token_batches
 from repro_torch.kernels import ops, topk_select
 from repro_torch.kernels.fused_memsgd import (
+    MAX_COLS,
     SELECTION_LAUNCHES,
     fused_memsgd_cuda,
+    launch_geometry,
 )
 from repro_torch.kernels.ref import fused_memsgd_ref, row_topk_ref
 from repro_torch.kernels.topk_select import (
@@ -35,6 +37,7 @@ from repro_torch.launch.train import (
     make_train_step,
 )
 from repro_torch.models import build_model
+from repro_torch.utils.platform import fused_loop_cutover
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
@@ -78,15 +81,24 @@ def test_kernel_is_bitwise_equal_to_its_plain_version(shape, k, kind, eta):
 
 
 def _fused_edges():
-    """(label, m, g, eta, k) at the edges of the fused kernel's threshold
-    branch, made with numpy from a seed: k around the candidate list's
-    bound (32) and capacity (256), k = C, all-zero and signed-zero rows,
-    ties, eta = 0, C % 4 != 0, and the widest row it holds."""
+    """(label, m, g, eta, k) at the edges of the fused kernel's design,
+    made with numpy from a seed: k around the candidate list's bound (32)
+    and capacity (256), k = C, a list that overflows, all-zero and
+    signed-zero rows, ties, subnormal and +-inf rows, eta = 0, C % 4 != 0,
+    a row count that leaves the last block's warps spare, and the widest
+    row both branches hold."""
     rng = np.random.default_rng(21)
     f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa
     for k in (13, 20, 32, 33, 256, 257):
         yield f"k={k}", f32(8, 1024), f32(8, 1024), 0.37, k
     yield "k=C", f32(4, 300), f32(4, 300), 0.37, 300
+    # lane l reads the columns j with (j // 4) % 32 == l: every entry of
+    # lane l above every entry of lane l + 1 overflows the candidate list
+    lane = (np.arange(1024) // 4) % 32
+    x = ((32 - lane) * 10.0 + rng.random((4, 1024))) * np.where(
+        rng.random((4, 1024)) < 0.5, -1.0, 1.0)
+    yield ("candidate list overflows", x.astype(np.float32),
+           np.zeros((4, 1024), np.float32), 1.0, 10)
     z = np.zeros((6, 256), np.float32)
     z[:, 1::3] = -0.0
     yield "all-zero rows, signed zeros", z, z.copy(), 0.5, 20
@@ -98,58 +110,96 @@ def _fused_edges():
            np.round(f32(16, 512) * 2) / 2, 1.0, 40)
     yield ("tie-heavy small integers", rng.integers(-3, 4, (8, 1024))
            .astype(np.float32), np.zeros((8, 1024), np.float32), 1.0, 20)
+    bits = rng.integers(1, 2**23, (6, 1024), dtype=np.uint32)
+    x = f32(6, 1024)
+    x[0, [5, 900, 1023]] = [np.inf, -np.inf, np.inf]
+    yield ("subnormal and +-inf rows", np.concatenate(
+        [bits.view(np.float32), x]), np.zeros((12, 1024), np.float32),
+        1.0, 10)
     yield "eta=0", f32(8, 1024), f32(8, 1024), 0.0, 20
     yield "C % 4 != 0", f32(6, 1023), f32(6, 1023), 0.37, 26
-    yield "widest row", f32(2, 57344), f32(2, 57344), 0.37, 300
+    yield "spare warps", f32(5, 1024), f32(5, 1024), 0.37, 10
+    C = MAX_COLS["threshold"]
+    yield "widest row", f32(2, C), f32(2, C), 0.37, 300
 
 
 FUSED_EDGES = [e[0] for e in _fused_edges()]
 
 
+@pytest.mark.parametrize("selection", ["loop", "threshold"])
 @pytest.mark.parametrize("label", FUSED_EDGES)
-def test_fused_threshold_branch_on_its_edges(label):
+def test_fused_threshold_branch_on_its_edges(label, selection):
+    """Both branches share one design (the candidate list, a warp for
+    every row, the bulk copy), so both are held on its edges."""
     _need_card()
     _, m, g, eta, k = next(e for e in _fused_edges() if e[0] == label)
     m, g = torch.from_numpy(m).cuda(), torch.from_numpy(g).cuda()
     before = dict(SELECTION_LAUNCHES)
-    got = fused_memsgd_cuda(m, g, eta, k, "threshold")
-    assert SELECTION_LAUNCHES == {"loop": before["loop"],
-                                  "threshold": before["threshold"] + 1}
+    got = fused_memsgd_cuda(m, g, eta, k, selection)
+    assert SELECTION_LAUNCHES == {
+        n: before[n] + (n == selection) for n in before}
     want = fused_memsgd_ref(m, g, eta, k)
     for a, b in zip(got, want):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
-def test_fused_threshold_branch_on_unaligned_rows():
+@pytest.mark.parametrize("selection", ["loop", "threshold"])
+def test_fused_threshold_branch_on_unaligned_rows(selection):
     _need_card()
     flat = torch.from_numpy(np.random.default_rng(22).standard_normal(
         2 * (8 * 1024 + 1)).astype(np.float32)).cuda()
     m, g = flat[1:8 * 1024 + 1].view(8, 1024), flat[-8 * 1024:].view(8, 1024)
     want = fused_memsgd_ref(m, g, 0.37, 20)
-    for a, b in zip(fused_memsgd_cuda(m, g, 0.37, 20, "threshold"), want):
+    for a, b in zip(fused_memsgd_cuda(m, g, 0.37, 20, selection), want):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("cols", [1, 20, 1023, 1024, 2560, 20000, 57340])
+def test_fused_launch_plan_fits_the_card(cols):
+    _need_card()
+    dev = torch.device("cuda", 0)
+    props = torch.cuda.get_device_properties(dev)
+    for selection in ("loop", "threshold"):
+        for rows in (1, 5, 1154560):
+            g = launch_geometry(selection, rows, cols, dev)
+            # never more shared memory than a block may use; the row
+            # always in shared memory; a warp for every row
+            assert 0 < g.smem_bytes <= props.shared_memory_per_block_optin
+            assert g.in_smem
+            assert 1 <= g.warps_per_block <= g.warps_per_sm
+            assert g.warps_per_sm * 32 <= props.max_threads_per_multi_processor
+            assert g.blocks == -(-rows // g.warps_per_block)
+    with pytest.raises(RuntimeError, match="launch plan failed"):
+        launch_geometry("threshold", 1, MAX_COLS["threshold"] + 4, dev)
 
 
 def test_fused_threshold_branch_refuses_a_row_over_shared_memory():
     _need_card()
-    m = torch.zeros((1, 57348), device="cuda")
+    m = torch.zeros((1, MAX_COLS["threshold"] + 4), device="cuda")
     with pytest.raises(ValueError, match="threshold selection"):
         fused_memsgd_cuda(m, m, 0.1, 20, "threshold")
     fused_memsgd_cuda(m, m, 0.1, 20, "loop")  # the loop branch holds it
 
 
-@pytest.mark.parametrize("shape,k,branch", [
-    ((8, 1024), 12, "loop"), ((8, 1024), 13, "threshold"),
-    ((8, 1024), 20, "threshold"),
+@pytest.mark.parametrize("shape,k,method,branch", [
+    # the fused sweep: "auto" takes the threshold branch at every k
+    # (FUSED_LOOP_CUTOVER["cuda"] = 0); the loop branch by name
+    ((8, 1024), 1, "auto", "threshold"), ((8, 1024), 32, "auto", "threshold"),
+    ((8, 1024), 33, "auto", "threshold"), ((8, 1024), 10, "loop", "loop"),
+    ((8, 1024), 20, "threshold", "threshold"),
     # rows of rwkv6-3b's (1002500, 1024) bucket at the bucketed path's k
     # and the topk preset's
-    ((4096, 1024), 10, "loop"), ((4096, 1024), 20, "threshold"),
+    ((4096, 1024), 10, "auto", "threshold"),
+    ((4096, 1024), 20, "auto", "threshold"),
 ])
-def test_fused_update_picks_the_branch_by_the_cutover(shape, k, branch):
+def test_fused_update_picks_the_branch_by_the_cutover(shape, k, method,
+                                                      branch):
     _need_card()
+    assert ops._resolve_method(method, k, "cuda",
+                               fused_loop_cutover) == branch
     m, g = _inputs(shape, 5, "normal")
     before = dict(SELECTION_LAUNCHES)
-    got = ops.fused_memsgd_update(m, g, 0.5, k)
+    got = ops.fused_memsgd_update(m, g, 0.5, k, method=method)
     assert {n: SELECTION_LAUNCHES[n] - before[n] for n in before} == {
         "loop": int(branch == "loop"), "threshold": int(branch != "loop")}
     for a, b in zip(got, fused_memsgd_ref(m, g, 0.5, k)):
@@ -479,13 +529,16 @@ def test_topk_preset_in_a_one_rank_nccl_group(tmp_path):
 
 
 def test_cli_trains_the_topk_preset_on_the_card():
+    """The bucket's k = 20 takes the fused kernel's branch that the fused
+    cutover names (FUSED_LOOP_CUTOVER["cuda"]: the threshold branch)."""
     _need_card()
+    branch = ops._resolve_method("auto", 20, "cuda", fused_loop_cutover)
     before = dict(SELECTION_LAUNCHES)
     *_, count, history = train_mod.main(
         ["--preset", "topk", "--ratio", "0.02", "--steps", "2", "--batch",
          "2", "--seq", "32"])
     assert count == 2
-    assert SELECTION_LAUNCHES["threshold"] - before["threshold"] == 2
+    assert SELECTION_LAUNCHES[branch] - before[branch] == 2
     assert all(math.isfinite(x) for _, x in history)
 
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import repro.kernels as ref_kernels
+import repro.kernels.ops as ref_ops
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_memsgd import (
     MAX_COLS,
@@ -25,6 +26,11 @@ from repro_torch.kernels.fused_memsgd import (
     fused_memsgd_cuda,
 )
 from repro_torch.kernels.ref import densify_rows_ref, row_topk_ref
+from repro_torch.utils.platform import (
+    FUSED_LOOP_CUTOVER,
+    fused_loop_cutover,
+    topk_loop_cutover,
+)
 
 SHAPES = [(8, 64), (16, 128), (8, 1024), (24, 100), (3, 33), (1, 257)]
 KS = [1, 4, 16]
@@ -172,9 +178,37 @@ def test_unknown_selection_and_the_threshold_branch_width_raise():
     m = torch.zeros((4, 32))
     with pytest.raises(ValueError, match="unknown fused_memsgd selection"):
         fused_memsgd_cuda(m, m, 0.1, 2, "radix")
-    # the threshold branch's scratch lowers its widest row below the loop's
+    # the threshold branch's histogram lowers its widest row below the
+    # loop's: a warp's row buffer, its candidate list (and histogram) and
+    # its mbarrier fill a block's 227 KB
     wide = torch.zeros((1, MAX_COLS["threshold"] + 4))
     check_inputs(wide, wide, 2, "loop")
     with pytest.raises(ValueError, match="threshold selection"):
         check_inputs(wide, wide, 2, "threshold")
-    assert MAX_COLS == {"loop": 58112, "threshold": 57344}
+    assert MAX_COLS == {"loop": 57596, "threshold": 57340}
+
+
+def test_fused_auto_reads_its_own_cutover():
+    """``fused_memsgd_update(method="auto")`` resolves from the fused
+    kernel's own cutover (a CUDA device object, nothing allocated), the
+    top-k kernels' "auto" from theirs (each from its own sweep on the
+    card); on the CPU both follow the reference's table."""
+    cuda = torch.device("cuda")
+    # the fused sweep on the card: the threshold branch at every k
+    assert FUSED_LOOP_CUTOVER == {"cpu": 4, "cuda": 0}
+    assert fused_loop_cutover(cuda) == 0
+    for k in range(1, 65):
+        assert ops._resolve_method("auto", k, cuda, fused_loop_cutover) == \
+            "threshold"
+        assert ops._resolve_method("auto", k, cuda) == (
+            "threshold" if k > 26 else "loop")
+        assert ops._resolve_method("auto", k, "cpu", fused_loop_cutover) \
+            == ref_ops._resolve_method("auto", k)
+        for method in ("loop", "threshold"):
+            assert ops._resolve_method(method, k, cuda,
+                                       fused_loop_cutover) == method
+    assert topk_loop_cutover(cuda) == 26
+    with pytest.raises(ValueError, match="no fused cutover"):
+        fused_loop_cutover("meta")
+    with pytest.raises(ValueError, match="unknown top-k method"):
+        ops._resolve_method("radix", 4, cuda, fused_loop_cutover)

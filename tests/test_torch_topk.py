@@ -241,14 +241,17 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    assert [p.name for p in _build.sources("topk_select")] == [
-        "topk_select.cu", "topk_common.cuh"]
+    for name in ("topk_select", "fused_memsgd"):
+        assert [p.name for p in _build.sources(name)] == [
+            f"{name}.cu", "row_buffer.cuh", "topk_common.cuh"]
     before = {n: _build.library_path(n)
               for n in ("topk_select", "fused_memsgd")}
-    header = csrc / "topk_common.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = {n: _build.library_path(n) for n in before}
-    assert all(after[n] != before[n] for n in before)
+    for name in ("topk_common.cuh", "row_buffer.cuh"):
+        header = csrc / name
+        header.write_text(header.read_text() + "\n// edited\n")
+        after = {n: _build.library_path(n) for n in before}
+        assert all(after[n] != before[n] for n in before)
+        before = after
     src = csrc / "topk_select.cu"
     src.write_text(src.read_text() + "\n// edited\n")
     assert _build.library_path("topk_select") != after["topk_select"]
