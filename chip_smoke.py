@@ -117,12 +117,32 @@ Phases, each of which fails the run with a non-zero exit:
    internvl2-26b at 1): the loop kernel at k = 41 (C = 4096) and 61
    (C = 6144). Every run checks its bytes per step against the
    reference's accounting, and is profiled.
+12. The griffin family (after the dense family): recurrentgemma-9b
+   (RG-LRU, causal conv, local MQA) at full width, depth cut to 3 layers
+   (rec, rec, attn), at eta 0.3 on all three paths: bucketed (its
+   (2689056, 1024) bucket, 2.75e9 elements), the topk preset (packed,
+   then unpacked: identical losses) and per-leaf with ``argmax_onehot``
+   (27 loop launches a step, its conv_w rows of C = 4 among them), each
+   checking its bytes per step and profiled.
+13. The blocked attention paths (after the optimizer modes): qwen3-4b
+   (4 layers) and recurrentgemma-9b (3 layers) at full width on the
+   per-leaf path, batch 1 x seq 4096, 3 steps each; the attention branch
+   counts, zeroed before and read after each run, must show every
+   attention layer of every step on ``_flash_full`` (qwen3-4b) or
+   ``_flash_windowed`` (recurrentgemma-9b, its 2048 window binding). Then
+   what the two new plain-PyTorch layers cost (forward and backward: ms,
+   device operations, peak memory): griffin's RG-LRU and its log-depth
+   scan at the path's shape, and one qwen3-4b attention layer at seq 4096
+   through the causal blocked path and the direct one. Phase 7 adds recurrentgemma-9b's smoke config at 3 layers and seq 96 (above
+   its window of 64) and one ``attention`` call at seq 3072 at tiny
+   widths, with and without a window, card against CPU.
 
 Phase 3 runs the kernels at every architecture's shapes: the fused
-kernel at each bucket (qwen3-4b's, rwkv6-3b's and the two MoE configs'),
-the top-k kernels at every per-leaf (rows, C, k) of each, timed per
-per-leaf step of each and, for rwkv6-3b, over its rows narrower than 1024
-alone.
+kernel at each bucket (qwen3-4b's, rwkv6-3b's, the two MoE configs' and
+recurrentgemma-9b's, above 2^31 elements), the top-k kernels at every
+per-leaf (rows, C, k) of each (and at griffin's rows of C = 4 with k = 1
+and 4, aligned and not), timed per per-leaf step of each and, for
+rwkv6-3b and recurrentgemma-9b, over their rows narrower than 1024 alone.
 
 Prints each architecture's launches per kernel in each of its runs on a
 ``{"launches_by_arch": ...}`` line, the optimizer modes' and the logistic
@@ -200,12 +220,31 @@ DENSE_STEPS = 3
 # fourth step
 ETAS.update({MOE_ARCH: 0.3, QMOE_ARCH: 0.3})
 ETAS.update({arch: ETA for arch in DENSE})
+# the griffin family: recurrentgemma-9b (RG-LRU, causal conv, local MQA)
+# at full width, depth cut to 3 layers (rec, rec, attn: the least depth
+# that holds every block kind; 2,753,654,784 parameters), on all three
+# paths at the eta of the reference's own Mem-SGD runs of it
+# (benchmarks/run.py:1607, :1664, its config-zoo matrix); its sparse
+# bucket, 2,753,593,344 elements (above 2^31), and its bytes per step
+# (the reference's accounting, tests/test_torch_griffin.py)
+GRIFFIN_ARCH, GRIFFIN_LAYERS = "recurrentgemma-9b", 3
+GRIFFIN_SHAPE = (2689056, 1024)
+GRIFFIN_BYTES = {"per-leaf": 220_811_264, "bucketed": 215_370_240,
+                 "topk packed": 290_663_840, "topk unpacked": 430_494_720}
+ETAS[GRIFFIN_ARCH] = 0.3
+# the blocked attention paths: per-leaf runs at batch 1 x seq 4096 (the
+# reference's train_4k length), LONG_STEPS steps each: arch -> (depth,
+# the attention branch each of its attention layers must take)
+LONG = {ARCH: (N_LAYERS, "flash_full"),
+        GRIFFIN_ARCH: (GRIFFIN_LAYERS, "flash_windowed")}
+LONG_BATCH, LONG_SEQ, LONG_STEPS = 1, 4096, 3
 # each architecture's depth on the card
 DEPTHS = {ARCH: N_LAYERS, RWKV_ARCH: RWKV_LAYERS, MOE_ARCH: MOE_LAYERS,
-          QMOE_ARCH: QMOE_LAYERS, **{a: d for a, (d, _) in DENSE.items()}}
+          QMOE_ARCH: QMOE_LAYERS, **{a: d for a, (d, _) in DENSE.items()},
+          GRIFFIN_ARCH: GRIFFIN_LAYERS}
 # every sparse bucket phase 3 runs the fused kernel at
 BUCKETS = {ARCH: PATH_SHAPE, RWKV_ARCH: RWKV_SHAPE, MOE_ARCH: MOE_SHAPE,
-           QMOE_ARCH: QMOE_SHAPE}
+           QMOE_ARCH: QMOE_SHAPE, GRIFFIN_ARCH: GRIFFIN_SHAPE}
 # the per-leaf rows narrower than this are timed on their own
 NARROW_C = 1024
 KERNEL_SOURCES = ("fused_memsgd", "topk_select")
@@ -721,6 +760,14 @@ def topk_cases(dev, leaf_shapes):
                     yield (f"{arch} per-leaf path ({R},{C}) k={k}",
                            randn((R, C), 20 + i) * 0.01, k)
             i += 1
+    # griffin's conv_w rows at full width, C = 4: k = 1 (its per-leaf k)
+    # and k = C, 16-byte aligned and 4 or 12 bytes past alignment (a row
+    # then straddles two 16-byte words)
+    flat = randn((4096 * 4 + 3,), 9)
+    for off in (0, 1, 3):
+        for k in (1, 4):
+            yield (f"C = 4 rows (4096,4) k={k}, {4 * off} bytes past "
+                   "alignment", flat[off:off + 4096 * 4].view(4096, 4), k)
     for label, x, k in design_edges():
         yield label, torch.from_numpy(x).to(dev), k
 
@@ -993,13 +1040,14 @@ def step_clock():
     return StepClock()
 
 
-def run_path(label, model, tc, dev, expect: dict, steps: int = STEPS):
-    """One path's run through ``train()`` for ``steps`` steps from the
-    seeded init: every launch count zeroed just before, read just after,
-    and checked against ``expect`` (kernel -> launches; every other kernel
-    0). Fails unless the losses are finite from near ln V, the last below
-    the first, and every parameter moved somewhere. Returns (losses,
-    counts, params, memory, batches)."""
+def run_path(label, model, tc, dev, expect: dict, steps: int = STEPS,
+             batch: int = BATCH, seq: int = SEQ):
+    """One path's run through ``train()`` for ``steps`` steps of batch x
+    seq tokens from the seeded init: every launch count zeroed just
+    before, read just after, and checked against ``expect`` (kernel ->
+    launches; every other kernel 0). Fails unless the losses are finite
+    from near ln V, the last below the first, and every parameter moved
+    somewhere. Returns (losses, counts, params, memory, batches)."""
     from repro_torch.data import DeviceBatcher, token_batches
     from repro_torch.launch.train import train
     from repro_torch.utils.tree import tree_leaves
@@ -1008,7 +1056,7 @@ def run_path(label, model, tc, dev, expect: dict, steps: int = STEPS):
     params = model.init(seed=0, device=dev)
     before = [p.clone() for p in tree_leaves(params)]
     batches = DeviceBatcher(
-        token_batches(cfg.vocab_size, BATCH, SEQ, seed=0), dev)
+        token_batches(cfg.vocab_size, batch, seq, seed=0), dev)
     tel = step_clock()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1620,10 +1668,15 @@ def phase_small(dev) -> None:
     paths = {"bucketed": SyncConfig(ratio=RATIO, bucketed=True),
              "topk preset": SyncConfig.preset("topk", ratio=TOPK_RATIO),
              "per-leaf": SyncConfig(ratio=RATIO)}
-    for arch in (ARCH, RWKV_ARCH, MOE_ARCH, QMOE_ARCH):
-        cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+    # (config overrides, seq): griffin at 3 layers (every block kind) and
+    # seq 96, above its smoke window of 64, so that the window binds
+    small = {GRIFFIN_ARCH: (dict(n_layers=3), 96)}
+    for arch in (ARCH, RWKV_ARCH, MOE_ARCH, QMOE_ARCH, GRIFFIN_ARCH):
+        overrides, seq = small.get(arch, ({}, 64))
+        cfg = get_smoke_config(arch).replace(compute_dtype="float32",
+                                             **overrides)
         model = build_model(cfg)
-        batch = next(token_batches(cfg.vocab_size, 4, 64, seed=1))
+        batch = next(token_batches(cfg.vocab_size, 4, seq, seed=1))
         host = model.init(seed=0, device="cpu")
         for path, sync in paths.items():
             tc = TrainConfig(eta=ETAS[arch], sync=sync)
@@ -1687,6 +1740,7 @@ def phase_small(dev) -> None:
             if rel_grad > 1e-5 or not exact:
                 fail(f"the card's {arch} {path} step disagrees with the "
                      "CPU's on the small input")
+    small_attention(dev)
 
 
 def phase_moe(dev, leaf_shapes) -> dict:
@@ -1712,6 +1766,187 @@ def phase_moe(dev, leaf_shapes) -> dict:
     return {MOE_ARCH: moe, QMOE_ARCH: qmoe}
 
 
+def phase_griffin(dev, leaf_shapes) -> dict:
+    """GRIFFIN_ARCH at full width on the bucketed path (its (2689056, 1024)
+    bucket), the topk preset (packed, then unpacked: identical losses) and
+    the per-leaf path with ``argmax_onehot`` (every k <= 64: the loop
+    kernel, the conv_w leaves' rows of C = 4 at k = 1 among them), each
+    checking its bytes per step against the reference's accounting.
+    Returns its launches, by path."""
+    return {
+        "bucketed": phase_bucketed(dev, GRIFFIN_ARCH, GRIFFIN_LAYERS,
+                                   GRIFFIN_SHAPE, GRIFFIN_BYTES["bucketed"]),
+        "topk preset": phase_topk_preset(
+            dev, GRIFFIN_ARCH, GRIFFIN_LAYERS,
+            {"packed": GRIFFIN_BYTES["topk packed"],
+             "unpacked": GRIFFIN_BYTES["topk unpacked"]}),
+        "per-leaf": phase_leaf(dev, leaf_shapes[GRIFFIN_ARCH], GRIFFIN_ARCH,
+                               GRIFFIN_LAYERS, ("argmax_onehot",),
+                               GRIFFIN_BYTES["per-leaf"])}
+
+
+def fwd_bwd_cost(label, fn, leaves) -> None:
+    """Prints the CUDA-event ms of ``fn``'s forward and the backward of
+    its float32 sum into ``leaves``, the kernels one such call launches
+    (torch.profiler) and its peak memory above what was allocated before
+    it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def call():
+        out = fn()
+        torch.autograd.grad(out.float().sum(), leaves)
+
+    ms = cuda_ms(call, iters=5, warmup=2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"  {label}: forward + backward {ms:.3f} ms, {kernels} device "
+          f"operations, peak {peak / 2**30:.2f} GiB above its inputs")
+
+
+def layer_costs(dev) -> None:
+    """What the slice's two new plain-PyTorch layers cost on the card
+    (bf16 inputs as in the models; the work that a fused kernel would
+    replace): griffin's RG-LRU at the path's shape (BATCH x SEQ x 4096)
+    and its log-depth scan alone (float32, T + 1 = 513 positions: 10
+    rounds); one attention layer of qwen3-4b at full width, batch 1, seq
+    LONG_SEQ, through the causal blocked path and through the direct
+    path's ``_sdpa``."""
+    from repro_torch.models import griffin, layers
+
+    cfg = full_model(GRIFFIN_ARCH, GRIFFIN_LAYERS).cfg
+    R = cfg.hybrid.lru_width
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    rec = {k: v.to(torch.bfloat16).requires_grad_(True) for k, v in
+           griffin.init_recurrent_block(cfg, torch.float32, dev, gen).items()}
+    x = torch.randn((BATCH, SEQ, R), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    h0 = torch.zeros((BATCH, R), device=dev)
+    leaves = [x] + [rec[k] for k in ("w_a", "b_a", "w_x", "b_x", "lam")]
+    fwd_bwd_cost(f"{GRIFFIN_ARCH} rg_lru ({BATCH},{SEQ},{R})",
+                 lambda: griffin.rg_lru(rec, x, h0)[0], leaves)
+    a = torch.rand((BATCH, SEQ + 1, R), generator=gen,
+                   device=dev).requires_grad_(True)
+    b = torch.randn((BATCH, SEQ + 1, R), generator=gen,
+                    device=dev).requires_grad_(True)
+    fwd_bwd_cost(f"linear_scan ({BATCH},{SEQ + 1},{R}) float32",
+                 lambda: griffin.linear_scan(a, b), [a, b])
+    del rec, x, h0, leaves, a, b
+
+    cfg = full_model(ARCH, N_LAYERS).cfg
+    p = {k: v.to(torch.bfloat16).requires_grad_(True) for k, v in
+         layers.init_attention(cfg, None, torch.float32, dev, gen).items()}
+    x = (torch.randn((1, LONG_SEQ, cfg.d_model), generator=gen, device=dev)
+         .to(torch.bfloat16).requires_grad_(True))
+    pos = torch.arange(LONG_SEQ, dtype=torch.int32, device=dev)[None]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+
+    def direct():
+        q, k, v = layers._qkv(p, cfg, x)
+        q = layers.apply_rope(q, pos, cfg.rope_theta)
+        k = layers.apply_rope(k, pos, cfg.rope_theta)
+        out = layers._sdpa(q, k, v, layers.causal_mask(LONG_SEQ, None, dev),
+                           n_rep)
+        return out.reshape(1, LONG_SEQ, -1) @ p["wo"]
+
+    leaves = [x] + list(p.values())
+    fwd_bwd_cost(f"{ARCH} attention (1,{LONG_SEQ},{cfg.d_model}), "
+                 "_flash_full", lambda: layers.attention(p, cfg, x, pos),
+                 leaves)
+    fwd_bwd_cost(f"{ARCH} attention (1,{LONG_SEQ},{cfg.d_model}), direct "
+                 "_sdpa", direct, leaves)
+    del p, x, leaves
+    torch.cuda.empty_cache()
+
+
+def phase_long(dev) -> dict:
+    """The blocked attention paths: each LONG architecture on the per-leaf
+    path (``argmax_onehot``) at LONG_BATCH x LONG_SEQ for LONG_STEPS steps,
+    checked as every path run is; the attention branch counts
+    (``models.layers.ATTENTION_CALLS``) zeroed just before the run and read
+    just after must show every attention layer of every step on the named
+    blocked branch. Returns each run's launches."""
+    from repro_torch.core.distributed import SyncConfig
+    from repro_torch.launch.train import TrainConfig
+    from repro_torch.models import griffin, layers
+
+    out = {}
+    for arch, (n_layers, branch) in LONG.items():
+        model = full_model(arch, n_layers)
+        cfg = model.cfg
+        n_attn = (griffin.layer_kinds(cfg).count("attn")
+                  if cfg.family == "hybrid" else n_layers)
+        calls = leaf_row_shapes(arch, n_layers)
+        tc = TrainConfig(optimizer="memsgd", eta=ETAS[arch],
+                         sync=SyncConfig(ratio=RATIO))
+        expect = {name: LONG_STEPS * n for name, n in
+                  selection_launches("argmax_onehot", calls).items()}
+        window = cfg.hybrid.attn_window if cfg.hybrid else cfg.sliding_window
+        print(f"long sequence: {arch} {n_layers} layers at full width, "
+              f"per-leaf path, batch {LONG_BATCH} x seq {LONG_SEQ}, "
+              f"{n_attn} attention layers (window {window})")
+        layers.ATTENTION_CALLS.clear()
+        _, counts, params, memory, batches = run_path(
+            f"{arch} per-leaf path at seq {LONG_SEQ}", model, tc, dev,
+            expect, LONG_STEPS, LONG_BATCH, LONG_SEQ)
+        took = dict(layers.ATTENTION_CALLS)
+        print(f"{arch} at seq {LONG_SEQ}: attention calls by branch {took}")
+        if took != {branch: LONG_STEPS * n_attn}:
+            fail(f"{arch} at seq {LONG_SEQ}: attention took {took}, expected "
+                 f"{LONG_STEPS * n_attn} calls of {branch}")
+        out[arch] = {name: counts[name] for name in expect}
+        del params, memory, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def small_attention(dev) -> None:
+    """``models.layers.attention`` at seq 3072 > FLASH_THRESHOLD (tiny
+    widths: d_model 32, 2 heads of 16, one kv head; float32), without a
+    window (the causal blocked path) and with one of 1000 (the windowed
+    blocked path), on the card and on the CPU from the same inputs: within
+    1e-5 of the output's largest entry (float32 sums in other orders)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_smoke_config(GRIFFIN_ARCH).replace(
+        d_model=32, n_heads=2, n_kv_heads=1, compute_dtype="float32")
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    p = layers.init_attention(cfg, None, torch.float32, "cpu", gen)
+    x = torch.randn((1, 3072, 32), generator=gen)
+    pos = torch.arange(3072, dtype=torch.int32)[None]
+    for window, branch in ((None, "flash_full"), (1000, "flash_windowed")):
+        outs = {}
+        for d in (torch.device("cpu"), dev):
+            layers.ATTENTION_CALLS.clear()
+            outs[d.type] = layers.attention(
+                tree_map(lambda t: t.to(d), p), cfg, x.to(d), pos.to(d),
+                window).cpu()
+            if dict(layers.ATTENTION_CALLS) != {branch: 1}:
+                fail(f"attention at seq 3072, window {window}: took "
+                     f"{dict(layers.ATTENTION_CALLS)}, expected {branch}")
+        err = float((outs["cuda"] - outs["cpu"]).abs().max()
+                    / outs["cpu"].abs().max())
+        print(f"small input, attention at seq 3072, window {window} "
+              f"({branch}): card vs cpu max |err| {err:.2e} of the largest")
+        if err > 1e-5:
+            fail(f"the card's blocked attention ({branch}) disagrees with the "
+                 "CPU's")
+
+
 def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1729,7 +1964,10 @@ def main() -> None:
         by_arch[arch] = {"per-leaf": phase_leaf(
             dev, leaf_shapes[arch], arch, depth, ("argmax_onehot",), nbytes,
             DENSE_STEPS)}
-    by_path = {"optimizer modes": phase_opt_modes(dev, leaf_shapes[ARCH])}
+    by_arch[GRIFFIN_ARCH] = phase_griffin(dev, leaf_shapes)
+    by_path = {"optimizer modes": phase_opt_modes(dev, leaf_shapes[ARCH]),
+               f"seq {LONG_SEQ}": phase_long(dev)}
+    layer_costs(dev)
     by_arch[RWKV_ARCH] = {
         "bucketed": phase_bucketed(dev, RWKV_ARCH, RWKV_LAYERS, RWKV_SHAPE,
                                    RWKV_BYTES["bucketed"]),

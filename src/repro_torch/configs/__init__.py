@@ -2,17 +2,22 @@
 
 ``get_config(arch_id)`` returns the full ``ModelConfig``;
 ``get_smoke_config(arch_id)`` the reduced same-family variant the CPU
-tests use. Every architecture of the reference is listed but
-recurrentgemma-9b (the hybrid griffin family, not ported yet): the dense
-decoders, the two MoE decoders and rwkv6-3b.
+tests use. Every architecture of the reference is listed: the dense
+decoders, the two MoE decoders, rwkv6-3b and recurrentgemma-9b (the
+hybrid griffin family).
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, MoEConfig, RWKVConfig
+from repro_torch.configs.base import (
+    HybridConfig,
+    ModelConfig,
+    MoEConfig,
+    RWKVConfig,
+)
 
-# the reference's ARCH_IDS, in its order, without recurrentgemma-9b
+# the reference's ARCH_IDS, in its order
 ARCH_IDS = (
     "rwkv6-3b",
     "qwen1.5-4b",
@@ -22,6 +27,7 @@ ARCH_IDS = (
     "qwen3-4b",
     "internvl2-26b",
     "granite-3-8b",
+    "recurrentgemma-9b",
     "granite-moe-3b-a800m",
 )
 
@@ -41,5 +47,5 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).smoke_config()
 
 
-__all__ = ["ModelConfig", "MoEConfig", "RWKVConfig", "ARCH_IDS",
-           "get_config", "get_smoke_config"]
+__all__ = ["ModelConfig", "MoEConfig", "RWKVConfig", "HybridConfig",
+           "ARCH_IDS", "get_config", "get_smoke_config"]

@@ -1,18 +1,18 @@
 """Model configuration dataclasses (the port's own copy of
-``repro.configs.base``'s ``ModelConfig``, ``MoEConfig`` and
-``RWKVConfig``, restricted to what the port runs).
+``repro.configs.base``'s ``ModelConfig``, ``MoEConfig``, ``RWKVConfig``
+and ``HybridConfig``, restricted to what the port runs).
 
 One ``ModelConfig`` per architecture lives in
 ``repro_torch/configs/<arch_id>.py``; each exposes ``config()`` (full
 size) and ``smoke_config()`` (reduced: 2 layers, narrow widths, <= 4
-experts, runnable on a CPU). The port runs the dense decoder, MoE and
-RWKV families; the reference's hybrid (griffin) and remat fields are
-absent.
+experts, runnable on a CPU). The port runs the dense decoder, MoE, RWKV
+and hybrid (griffin) families; the reference's remat field, which serves
+its dry-run, is absent.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,9 +33,18 @@ class RWKVConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    # RecurrentGemma-style: repeating block pattern, e.g. ("rec","rec","attn")
+    pattern: Tuple[str, ...] = ("rec", "rec", "attn")
+    lru_width: Optional[int] = None  # defaults to d_model
+    conv_width: int = 4
+    attn_window: int = 2048
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str  # dense | moe | rwkv (the families the port runs)
+    family: str  # dense | moe | rwkv | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -57,6 +66,7 @@ class ModelConfig:
     n_prefix_embeddings: int = 0
     moe: Optional[MoEConfig] = None
     rwkv: Optional[RWKVConfig] = None
+    hybrid: Optional[HybridConfig] = None
     # numerics
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

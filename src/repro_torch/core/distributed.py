@@ -367,7 +367,11 @@ def bucketed_sync_gradients(
     value_dtype = getattr(torch, cfg.value_dtype)
     g_bufs = bk.pack(plan, grad_tree, dtype=torch.float32)
     ups, mems = [], []
-    for spec, m, g in zip(plan.buckets, memory_bufs, g_bufs):
+    for b, (spec, m) in enumerate(zip(plan.buckets, memory_bufs)):
+        # each packed gradient is dropped once consumed, so that the
+        # bucket's update can take its block (a 2.75e9-element bucket
+        # holds 10.3 GiB)
+        g, g_bufs[b] = g_bufs[b], None
         if cfg.strategy == "dense" or spec.kind == "dense":
             u = torch.add(m, torch.mul(g, eta32(eta)))
             ups.append(_mean(u))  # own = u
@@ -375,6 +379,7 @@ def bucketed_sync_gradients(
             continue
         k_row = cfg.k_for(spec.cols)
         new_m, vals, idx = fused_memsgd_update(m, g, eta, k_row)
+        del g
         gv, gi = _exchange(cfg, vals, idx, spec.cols)
         del vals, idx
         ups.append(_densify_mean(new_m, 1, gv, gi, k_row, value_dtype))

@@ -10,7 +10,7 @@ port does not run yet.
 """
 from __future__ import annotations
 
-from repro_torch.utils.tree import tree_flatten
+from repro_torch.utils.tree import tree_flatten, tree_paths
 
 # leaf name -> (rank of the rule's trailing dims, column axis among them);
 # the column half of the reference's _RULES, every family
@@ -93,15 +93,6 @@ def _col_for(path, ndim: int) -> int:
     return col + (ndim - rank)
 
 
-def _paths(tree, prefix=()):
-    """Key paths of a nested dict's leaves, in ``tree_flatten`` order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _paths(tree[k], prefix + (k,))
-    else:
-        yield prefix
-
-
 def sync_col_axes(param_shapes) -> dict:
     """Tree of ints: the per-leaf sync's column axis for each leaf of a
     parameter tree (tensors, ``meta`` tensors included: only ``.dim()`` is
@@ -109,4 +100,4 @@ def sync_col_axes(param_shapes) -> dict:
     leaves, treedef = tree_flatten(param_shapes)
     return treedef.unflatten(
         _col_for(path, leaf.dim())
-        for path, leaf in zip(_paths(param_shapes), leaves))
+        for path, leaf in zip(tree_paths(param_shapes), leaves))

@@ -8,6 +8,7 @@ the norm, fp32 attention logits and softmax, the same masking constant.
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional
 
@@ -19,6 +20,12 @@ from repro_torch.utils.tree import tree_flatten
 # the direct attention path materializes (B, H, S, T) logits; the
 # reference switches to blocked attention above this many positions
 FLASH_THRESHOLD = 2048
+# the blocked paths' query and key/value block (the reference's runtime
+# min(1024, S))
+FLASH_BLOCK = 1024
+# calls of each attention branch ("direct", "flash_full",
+# "flash_windowed"), counted on the host; reset to count one run
+ATTENTION_CALLS = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -103,22 +110,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # ---------------------------------------------------------------------------
 
 
-def init_attention(cfg, L: int, dtype, device, generator=None) -> dict:
-    """Stacked attention leaves (leading L axis)."""
+def init_attention(cfg, L: Optional[int], dtype, device, generator=None
+                   ) -> dict:
+    """Attention leaves, stacked (leading L axis) or, for ``L=None``, one
+    layer's."""
     hd, D = cfg.hd, cfg.d_model
+    Ls = () if L is None else (L,)
     p = {
-        "wq": dense_init((L, D, cfg.n_heads * hd), dtype, device, generator),
-        "wk": dense_init((L, D, cfg.n_kv_heads * hd), dtype, device, generator),
-        "wv": dense_init((L, D, cfg.n_kv_heads * hd), dtype, device, generator),
-        "wo": dense_init((L, cfg.n_heads * hd, D), dtype, device, generator),
+        "wq": dense_init(Ls + (D, cfg.n_heads * hd), dtype, device, generator),
+        "wk": dense_init(Ls + (D, cfg.n_kv_heads * hd), dtype, device,
+                         generator),
+        "wv": dense_init(Ls + (D, cfg.n_kv_heads * hd), dtype, device,
+                         generator),
+        "wo": dense_init(Ls + (cfg.n_heads * hd, D), dtype, device, generator),
     }
     if cfg.qkv_bias:
         for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
                         ("bv", cfg.n_kv_heads)):
-            p[name] = torch.zeros((L, n * hd), dtype=dtype, device=device)
+            p[name] = torch.zeros(Ls + (n * hd,), dtype=dtype, device=device)
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((L, hd), dtype=dtype, device=device)
-        p["k_norm"] = torch.ones((L, hd), dtype=dtype, device=device)
+        p["q_norm"] = torch.ones(Ls + (hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones(Ls + (hd,), dtype=dtype, device=device)
     return p
 
 
@@ -167,19 +179,122 @@ def causal_mask(S: int, window: Optional[int] = None, device=None
     return m[None, None]  # (1, 1, S, S)
 
 
+# -- blocked (flash-style) attention ------------------------------------------
+#
+# The direct path materializes (B, H, S, T) logits. Above FLASH_THRESHOLD
+# positions the reference takes one of two blocked forms, plain jnp, and
+# so does the port, in plain PyTorch with autograd for the backward:
+# causal attention over query blocks and, inside, key/value blocks with a
+# running max and sum (float32 statistics); sliding-window attention over
+# query blocks, each against its static span of window + q_block keys.
+# The reference feeds the operands to einsum(..., preferred_element_type=
+# float32): exact products of the compute dtype's values, summed in
+# float32. The port upcasts the operands to float32 for the same products
+# (a bf16 product on the card would round its output to bf16), and rounds
+# the probabilities to the compute dtype before the second product, as
+# the reference's ``p.astype(q.dtype)`` does.
+
+
+def _check_blocks(S: int, **blocks) -> None:
+    for name, b in blocks.items():
+        if S % b:
+            raise ValueError(
+                f"blocked attention over S={S} positions needs S to be a "
+                f"multiple of its {name} of {b}")
+
+
+def _flash_full(q, k, v, n_rep: int, q_block: int, kv_block: int
+                ) -> torch.Tensor:
+    """Causal blocked attention. q: (B,S,H,hd); k,v: (B,S,KV,hd).
+
+    The reference scans every key/value block for each query block; a
+    block wholly above the diagonal is all masked, adds exp(-1e30 - m) = 0
+    to the sum and leaves the running max, so the port skips it: the same
+    values, half the work."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    _check_blocks(S, q_block=q_block, kv_block=kv_block)
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    kpos_all = torch.arange(S, device=q.device)
+    outs = []
+    for q0 in range(0, S, q_block):
+        qg = qf[:, q0:q0 + q_block].reshape(B, q_block, KV, n_rep, hd)
+        qpos = kpos_all[q0:q0 + q_block]
+        m = torch.full((B, KV, n_rep, q_block), -math.inf,
+                       dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, KV, n_rep, q_block, hd), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, q0 + q_block, kv_block):
+            logits = torch.einsum("bqgrh,bkgh->bgrqk", qg,
+                                  kf[:, k0:k0 + kv_block]) * scale
+            mask = kpos_all[k0:k0 + kv_block][None, :] <= qpos[:, None]
+            logits = torch.where(mask, logits, -1e30)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bgrqk,bkgh->bgrqh", p.to(q.dtype).to(torch.float32),
+                vf[:, k0:k0 + kv_block])
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B,KV,rep,qb,hd)
+        outs.append(out.movedim(3, 1).reshape(B, q_block, H, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _flash_windowed(q, k, v, n_rep: int, window: int, q_block: int
+                    ) -> torch.Tensor:
+    """Sliding-window causal attention: each query block against its
+    static span of ``window + q_block`` keys (left-padded with zeros)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    _check_blocks(S, q_block=q_block)
+    span = window + q_block
+    scale = 1.0 / math.sqrt(hd)
+    pad = (0, 0, 0, 0, window, 0)  # `window` zero positions in front
+    kp = F.pad(k.to(torch.float32), pad)
+    vp = F.pad(v.to(torch.float32), pad)
+    qf = q.to(torch.float32)
+    outs = []
+    for start in range(0, S, q_block):
+        qg = qf[:, start:start + q_block].reshape(B, q_block, KV, n_rep, hd)
+        logits = torch.einsum("bqgrh,bkgh->bgrqk", qg,
+                              kp[:, start:start + span]) * scale
+        qpos = start + torch.arange(q_block, device=q.device)
+        kpos = start + torch.arange(span, device=q.device) - window
+        mask = ((kpos[None, :] <= qpos[:, None])
+                & (kpos[None, :] > qpos[:, None] - window)
+                & (kpos[None, :] >= 0))
+        p = torch.softmax(torch.where(mask, logits, -1e30), dim=-1)
+        out = torch.einsum("bgrqk,bkgh->bgrqh",
+                           p.to(q.dtype).to(torch.float32),
+                           vp[:, start:start + span])
+        outs.append(out.movedim(3, 1).reshape(B, q_block, H, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
 def attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
               window: Optional[int] = None) -> torch.Tensor:
-    """Causal (training) attention through the direct path."""
+    """Causal (training) attention; picks the direct path up to
+    FLASH_THRESHOLD positions, above it the windowed blocked path when a
+    window shorter than S binds, else the causal blocked path."""
     B, S, _ = x.shape
-    if S > FLASH_THRESHOLD:
-        raise NotImplementedError(
-            f"attention over S={S} > {FLASH_THRESHOLD} positions needs the "
-            "blocked path, which is not ported yet")
     q, k, v = _qkv(p, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    out = _sdpa(q, k, v, causal_mask(S, window, x.device), n_rep)
+    block = min(FLASH_BLOCK, S)
+    if S <= FLASH_THRESHOLD:
+        ATTENTION_CALLS["direct"] += 1
+        out = _sdpa(q, k, v, causal_mask(S, window, x.device), n_rep)
+    elif window is not None and window < S:
+        ATTENTION_CALLS["flash_windowed"] += 1
+        out = _flash_windowed(q, k, v, n_rep, window, block)
+    else:
+        ATTENTION_CALLS["flash_full"] += 1
+        out = _flash_full(q, k, v, n_rep, block, block)
     return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
 
 

@@ -1,6 +1,6 @@
 """Model bundle: family dispatch, init, forward, loss (port of
-``repro.models.model`` for the dense, MoE and RWKV families; the hybrid
-griffin family raises by name).
+``repro.models.model``'s training half for the dense, MoE, RWKV and
+hybrid griffin families).
 
     model = build_model(cfg)
     params = model.init(seed=0, device="cuda")
@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rwkv, transformer
+from repro_torch.models import griffin, rwkv, transformer
 from repro_torch.utils.platform import resolve_device
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -45,6 +45,7 @@ _FAMILIES = {
     "dense": transformer,
     "moe": transformer,
     "rwkv": rwkv,
+    "hybrid": griffin,
 }
 
 
@@ -107,7 +108,6 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet; ported: "
-            f"{sorted(_FAMILIES)}")
+        raise ValueError(f"unknown family {cfg.family!r}; options: "
+                         f"{sorted(_FAMILIES)}")
     return Model(cfg)

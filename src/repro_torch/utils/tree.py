@@ -1,10 +1,11 @@
-"""Nested-dict trees of tensors, flattened in JAX's order.
+"""Trees of nested dicts and lists of tensors, flattened in JAX's order.
 
 The reference keeps parameters as pytrees, and ``jax.tree.flatten`` visits
-dict keys in SORTED order, whatever order they were inserted in. The
-bucket plan depends on that order (it decides which leaf opens which
-bucket), so the port flattens the same way: dicts by sorted key,
-everything else a leaf.
+dict keys in SORTED order, whatever order they were inserted in, and list
+items by index. The bucket plan depends on that order (it decides which
+leaf opens which bucket), so the port flattens the same way: dicts by
+sorted key, lists by index (griffin's per-layer blocks), everything else
+a leaf.
 """
 from __future__ import annotations
 
@@ -12,8 +13,8 @@ from typing import Any, Callable, List, Tuple
 
 
 class TreeDef:
-    """The shape of a nested dict: ``None`` marks a leaf, a dict maps each
-    key to its subtree's TreeDef."""
+    """The shape of a tree: ``None`` marks a leaf, a dict maps each key to
+    its subtree's node, a list holds its items' nodes in order."""
 
     def __init__(self, node):
         self._node = node
@@ -46,18 +47,27 @@ class TreeDef:
 def _structure(tree):
     if isinstance(tree, dict):
         return {k: _structure(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_structure(x) for x in tree]
     return None
 
 
 def _count(node) -> int:
     if node is None:
         return 1
-    return sum(_count(v) for v in node.values())
+    subs = node.values() if isinstance(node, dict) else node
+    return sum(_count(v) for v in subs)
 
 
 def _flatten(node, tree, out: list) -> None:
     if node is None:
         out.append(tree)
+        return
+    if isinstance(node, list):
+        if not isinstance(tree, list) or len(tree) != len(node):
+            raise ValueError("tree does not match the TreeDef's structure")
+        for sub, x in zip(node, tree):
+            _flatten(sub, x, out)
         return
     if not isinstance(tree, dict) or set(tree) != set(node):
         raise ValueError("tree does not match the TreeDef's structure")
@@ -68,7 +78,26 @@ def _flatten(node, tree, out: list) -> None:
 def _build(node, it):
     if node is None:
         return next(it)
+    if isinstance(node, list):
+        return [_build(sub, it) for sub in node]
     return {k: _build(sub, it) for k, sub in node.items()}
+
+
+def _key_paths(node, prefix: tuple, out: list) -> None:
+    if node is None:
+        out.append(prefix)
+        return
+    items = node.items() if isinstance(node, dict) else enumerate(node)
+    for k, sub in items:
+        _key_paths(sub, prefix + (k,), out)
+
+
+def tree_paths(tree) -> List[tuple]:
+    """Each leaf's key path (dict keys and list indices), in
+    ``tree_flatten`` order."""
+    out: List[tuple] = []
+    _key_paths(_structure(tree), (), out)
+    return out
 
 
 def tree_flatten(tree) -> Tuple[List[Any], TreeDef]:

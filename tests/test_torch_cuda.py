@@ -307,6 +307,24 @@ def test_fused_kernel_at_the_moe_bucket(selection, k):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
+@pytest.mark.parametrize("selection", ["loop", "threshold"])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_topk_kernels_on_griffin_s_rows_of_four(offset, k, selection):
+    """recurrentgemma-9b's conv_w at full width: 4096 rows of C = 4 (k = 1
+    on its per-leaf path; k = 4 = C), at 16-byte alignment and 4 or 12
+    bytes past it (a 16-byte row of 4 floats then straddles two)."""
+    _need_card()
+    flat = torch.from_numpy(
+        np.random.default_rng(offset).standard_normal(4096 * 4 + 3)
+        .astype(np.float32)).cuda()
+    x = flat[offset:offset + 4096 * 4].view(4096, 4)
+    wrapper = {"loop": row_topk_loop_cuda,
+               "threshold": row_topk_threshold_cuda}[selection]
+    for a, b in zip(wrapper(x, k), row_topk_ref(x, k)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
 def test_topk_kernels_on_unaligned_rows():
     _need_card()
     flat = torch.from_numpy(
@@ -432,6 +450,71 @@ def test_moe_step_on_the_card_matches_the_cpu(arch, bucketed):
     sparse = sum(p.numel() >= SyncConfig().dense_below
                  for p in tree_leaves(shapes))
     assert launched["cuda"] == {
+        "fused_memsgd": int(bucketed),
+        "row_topk_loop": 0 if bucketed else sparse,
+        "row_topk_threshold": 0}
+
+
+@pytest.mark.parametrize("bucketed", [True, False])
+def test_griffin_step_on_the_card_matches_the_cpu(bucketed, monkeypatch):
+    """recurrentgemma-9b's smoke step at 3 layers (rec, rec, attn) in
+    float32, card against CPU from the same params and batch: the loss
+    within 1e-5 relative, the gradients within 1e-5 relative L2 (float32
+    products summed in other orders), and the CPU's step taken from the
+    card's gradients gives the card's update bit for bit (the sync is
+    exact), so that a near-tie in the selection, flipped by the gradients'
+    last bits, is told apart from a fault (at this input the two devices'
+    end-to-end bucketed updates lie 2.1e-3 apart in relative L2: one such
+    flip). One fused launch on the bucketed path, one loop top-k launch
+    per sparse leaf on the per-leaf path."""
+    _need_card()
+    model = build_model(get_smoke_config("recurrentgemma-9b").replace(
+        compute_dtype="float32", n_layers=3))
+    tc = TrainConfig(eta=0.5, sync=SyncConfig(ratio=0.01, bucketed=bucketed))
+    batch = next(token_batches(512, 4, 64, seed=1))
+    host = model.init(seed=0, device="cpu")
+    real_grad = torch.autograd.grad
+
+    def step_on(dev, grads=None):
+        """(loss, update on the host, gradients on the host, launches) of
+        one step on ``dev``, from ``grads`` in place of its own if given."""
+        tapped = []
+
+        def grad(outputs, inputs, *args, **kwargs):
+            out = real_grad(outputs, inputs, *args, **kwargs)
+            tapped.append([g.detach().cpu() for g in out])
+            if grads is not None:
+                out = tuple(r.to(g.device) for r, g in zip(grads, out))
+            return out
+
+        params, memory, opt, count = init_train_state(
+            model, tc, device=dev,
+            params=tree_map(lambda t: t.to(dev, copy=True), host))
+        before = [p.clone() for p in tree_leaves(params)]
+        fused, topk = fused_memsgd_cuda.launches, dict(LAUNCHES)
+        monkeypatch.setattr(torch.autograd, "grad", grad)
+        params, memory, opt, count, met = make_train_step(model, tc)(
+            params, memory, opt, count,
+            {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        monkeypatch.setattr(torch.autograd, "grad", real_grad)
+        launched = {"fused_memsgd": fused_memsgd_cuda.launches - fused,
+                    **{n: LAUNCHES[n] - topk[n] for n in LAUNCHES}}
+        upd = torch.cat([(a - b).reshape(-1).cpu()
+                         for a, b in zip(before, tree_leaves(params))])
+        return float(met["loss"]), upd, tapped[0], launched
+
+    l_cpu, _, g_cpu, launched_cpu = step_on("cpu")
+    l_gpu, u_gpu, g_gpu, launched = step_on("cuda")
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    gc, gg = (torch.cat([g.reshape(-1) for g in gs]) for gs in (g_cpu, g_gpu))
+    assert float((gg - gc).norm() / gc.norm()) < 1e-5
+    u_from_card = step_on("cpu", g_gpu)[1]
+    assert torch.equal(u_from_card.view(torch.int32), u_gpu.view(torch.int32))
+    assert not any(launched_cpu.values())
+    shapes = model.param_shapes()
+    sparse = sum(p.numel() >= SyncConfig().dense_below
+                 for p in tree_leaves(shapes))
+    assert launched == {
         "fused_memsgd": int(bucketed),
         "row_topk_loop": 0 if bucketed else sparse,
         "row_topk_threshold": 0}

@@ -1,7 +1,9 @@
 """The port's decoder transformer against ``repro.models`` on the smoke
 configs, from the reference's own init carried over through numpy:
 qwen3-4b, and the seven architectures of the MoE and the rest of the dense
-family (``NEW_ARCHS``: qkv bias, prefix embeddings, MoE layers).
+family (``NEW_ARCHS``: qkv bias, prefix embeddings, MoE layers); every
+architecture's config and full-width per-leaf bytes (recurrentgemma-9b's
+model is held in ``tests/test_torch_griffin.py``).
 
 Tolerances: in float32 compute the loss within rtol 1e-5 and each
 gradient leaf within rtol 1e-4 (atol 1e-4 of the leaf's largest entry:
@@ -168,13 +170,15 @@ def test_prefix_embeds_match_reference(batch_np):
     assert no_prefix != with_prefix
 
 
-# the rest of the dense family at full width, depth cut as on the card:
+# the rest of the dense family and recurrentgemma-9b (griffin) at full
+# width, depth cut as on the card:
 # (layers, parameters, per-leaf bytes per step at ratio 0.01)
 FULL_WIDTH = {"qwen1.5-4b": (2, 937_192_960, 76_257_280),
               "yi-9b": (2, 870_338_560, 69_775_360),
               "granite-3-8b": (2, 803_229_696, 64_401_408),
               "internvl2-26b": (1, 1_528_842_240, 121_503_744),
-              "musicgen-medium": (2, 81_796_608, 6_420_480)}
+              "musicgen-medium": (2, 81_796_608, 6_420_480),
+              "recurrentgemma-9b": (3, 2_753_654_784, 220_811_264)}
 
 
 @pytest.mark.parametrize("arch", list(FULL_WIDTH))
@@ -206,29 +210,34 @@ def _shared_fields(x, other):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_configs_match_reference(arch):
     """Every ported architecture's config() and smoke_config() equal the
-    reference's, field for field, over the fields both define; the port
-    leaves out only the reference's hybrid and remat fields."""
+    reference's, field for field, over the fields both define (the hybrid
+    config of recurrentgemma-9b too); the port leaves out only the
+    reference's remat field, which serves its dry-run."""
     for ours, ref in ((get_config(arch), ref_get_config(arch)),
                       (get_smoke_config(arch), ref_get_smoke_config(arch))):
         assert _shared_fields(ours, ref) == _shared_fields(ref, ours)
         missing = {f.name for f in dataclasses.fields(ref)} - {
             f.name for f in dataclasses.fields(ours)}
-        assert missing == {"hybrid", "remat"}
-        assert ref.hybrid is None and ref.remat == "none"
+        assert missing == {"remat"}
+        assert ref.remat == "none"
+        assert (ours.hybrid is None) == (ref.hybrid is None) == (
+            ref.family != "hybrid")
+        if ref.hybrid is not None:
+            assert dataclasses.asdict(ours.hybrid) == dataclasses.asdict(
+                ref.hybrid)
 
 
-def test_registry_is_the_reference_s_but_griffin():
-    assert ARCH_IDS == tuple(a for a in REF_ARCH_IDS
-                             if a != "recurrentgemma-9b")
-    assert build_model(get_smoke_config("qwen3-moe-30b-a3b")).cfg.family \
-        == "moe"
-    hybrid = ModelConfig(arch_id="recurrentgemma-9b", family="hybrid",
-                         n_layers=2, d_model=256, n_heads=4, n_kv_heads=1,
-                         d_ff=512, vocab_size=512)
-    with pytest.raises(NotImplementedError, match="'hybrid'"):
-        build_model(hybrid)
-    with pytest.raises(ValueError, match="recurrentgemma-9b"):
-        get_config("recurrentgemma-9b")
+def test_registry_is_the_reference_s():
+    assert ARCH_IDS == REF_ARCH_IDS
+    for arch, family in (("qwen3-moe-30b-a3b", "moe"),
+                         ("recurrentgemma-9b", "hybrid")):
+        assert build_model(get_smoke_config(arch)).cfg.family == family
+    unknown = ModelConfig(arch_id="x", family="ssm", n_layers=2, d_model=256,
+                          n_heads=4, n_kv_heads=1, d_ff=512, vocab_size=512)
+    with pytest.raises(ValueError, match="unknown family 'ssm'"):
+        build_model(unknown)
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("recurrentgemma-2b")
 
 
 def test_bfloat16_loss_matches_reference(params_np, batch_np):
@@ -276,11 +285,15 @@ def test_xent_masks_the_padded_vocab():
 
 
 def test_long_sequences_raise():
+    """Above 2048 positions attention takes the blocked path, whose blocks
+    of 1024 must tile the sequence, as the reference's reshape needs: 2049
+    raises by name (tests/test_torch_griffin.py holds the blocked path
+    against the reference's)."""
     cfg = get_smoke_config(ARCH)
     params = build_model(cfg).init(device="cpu")
     blk = {k: v[0] for k, v in params["blocks"]["attn"].items()}
     x = torch.zeros((1, 2049, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="blocked"):
+    with pytest.raises(ValueError, match="blocked attention over S=2049"):
         L.attention(blk, cfg, x, torch.zeros((1, 2049), dtype=torch.int32))
 
 

@@ -1,7 +1,8 @@
 """The port's train step and driver against ``repro.launch.train``.
 
 One Mem-SGD step of a smoke config (qwen3-4b, and rwkv6-3b,
-granite-moe-3b-a800m and qwen3-moe-30b-a3b on each path) in float32
+granite-moe-3b-a800m, qwen3-moe-30b-a3b and recurrentgemma-9b at 3 layers
+on each path) in float32
 compute, on the bucketed path, the per-leaf path and the topk
 preset, from the reference's init, on the reference's 1-device mesh (the
 ``tests/test_system.py`` pattern) and in the port on the CPU. Tolerances:
@@ -18,10 +19,11 @@ reference run reaches NaN at step 5) runs at eta 0.05 with each port step
 taken from the reference's params and memory before it, held to the
 one-step tolerances.
 
-rwkv6-3b's reference step is assembled from the reference's own parts
-(``_ref_step_from_parts``): the reference's jitted driver step does not
-trace rwkv in float32 compute on the installed JAX (inside its
-``shard_map``, ``wkv_chunked``'s ``jnp.tril(jnp.ones(...))`` raises a
+rwkv6-3b's and recurrentgemma-9b's reference steps are assembled from
+the reference's own parts (``_ref_step_from_parts``): the reference's
+jitted driver step does not trace them in float32 compute on the
+installed JAX (inside its ``shard_map``, ``wkv_chunked``'s
+``jnp.tril(jnp.ones(...))`` and ``rg_lru``'s ``jnp.ones_like`` raise a
 context-mesh error; bfloat16 compute traces).
 """
 import io
@@ -155,19 +157,20 @@ def _ref_step_from_parts(rmodel, rtc, batches, states=None):
     return params_np, params, memory, [float(x) for x in losses]
 
 
-def _both_steps(arch, path, n_steps):
+def _both_steps(arch, path, n_steps, **overrides):
     """``n_steps`` memsgd steps of ``arch``'s smoke config in float32
-    compute, in the reference (one jitted shard_map step on a 1x1 (data,
-    model) mesh) and in the port on the CPU, from the same params and
-    batches. Returns the port's and the reference's (losses, applied
-    update, memory)."""
-    cfg_kw = dict(compute_dtype="float32")
+    compute (and ``overrides``), in the reference (one jitted shard_map
+    step on a 1x1 (data, model) mesh) and in the port on the CPU, from the
+    same params and batches. Returns the port's and the reference's
+    (losses, applied update, memory)."""
+    cfg_kw = dict(compute_dtype="float32", **overrides)
     sync, ref_sync = PATHS[path]
     batches = list(take(token_batches(512, 4, 64, seed=1), n_steps))
 
     rmodel = ref_build_model(ref_get_smoke_config(arch).replace(**cfg_kw))
     rtc = RefTrainConfig(optimizer="memsgd", eta=0.5, sync=ref_sync)
-    ref_steps = (_ref_step_from_parts if rmodel.cfg.family == "rwkv"
+    ref_steps = (_ref_step_from_parts
+                 if rmodel.cfg.family in ("rwkv", "hybrid")
                  else _ref_driver_steps)
     params_np, r_params, r_memory, r_losses = ref_steps(rmodel, rtc,
                                                         batches)
@@ -266,6 +269,14 @@ def test_rwkv_one_step_matches_reference(path):
     _assert_step_agrees((got[0][0],) + got[1:], (want[0][0],) + want[1:])
 
 
+@pytest.mark.parametrize("path", list(PATHS))
+def test_griffin_one_step_matches_reference(path):
+    """recurrentgemma-9b's smoke config at 3 layers (rec, rec, attn: every
+    block kind; the blocks a list of per-layer trees) on each path."""
+    got, want = _both_steps("recurrentgemma-9b", path, 1, n_layers=3)
+    _assert_step_agrees((got[0][0],) + got[1:], (want[0][0],) + want[1:])
+
+
 def _free_running_trajectory(arch):
     """Six per-leaf steps at eta 0.5, each package from its own state:
     the losses within rtol 2e-3 (the reference's own chaos is 5.7e-4,
@@ -349,6 +360,14 @@ def test_main_trains_moe_on_the_cpu():
 def test_main_trains_rwkv_on_the_cpu():
     memory = _main_on_the_cpu(["--arch", "rwkv6-3b"])
     model = build_model(get_smoke_config("rwkv6-3b"))
+    assert [m.shape for m in tree_leaves(memory)] == \
+        [p.shape for p in tree_leaves(model.param_shapes())]
+
+
+def test_main_trains_griffin_on_the_cpu():
+    memory = _main_on_the_cpu(["--arch", "recurrentgemma-9b"])
+    model = build_model(get_smoke_config("recurrentgemma-9b"))
+    assert isinstance(memory["blocks"], list)
     assert [m.shape for m in tree_leaves(memory)] == \
         [p.shape for p in tree_leaves(model.param_shapes())]
 
