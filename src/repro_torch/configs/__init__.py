@@ -4,16 +4,20 @@
 ``get_smoke_config(arch_id)`` the reduced same-family variant the CPU
 tests use. Every architecture of the reference is listed: the dense
 decoders, the two MoE decoders, rwkv6-3b and recurrentgemma-9b (the
-hybrid griffin family).
+hybrid griffin family). ``MESHES`` names the worker layouts
+(``launch.mesh.mesh_from_config``).
 """
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (
+    MESHES,
     HybridConfig,
+    MeshConfig,
     ModelConfig,
     MoEConfig,
+    PodRefreshConfig,
     RWKVConfig,
 )
 
@@ -48,4 +52,5 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
 
 
 __all__ = ["ModelConfig", "MoEConfig", "RWKVConfig", "HybridConfig",
-           "ARCH_IDS", "get_config", "get_smoke_config"]
+           "MeshConfig", "MESHES", "PodRefreshConfig", "ARCH_IDS",
+           "get_config", "get_smoke_config"]

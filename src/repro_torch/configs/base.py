@@ -1,6 +1,7 @@
-"""Model configuration dataclasses (the port's own copy of
-``repro.configs.base``'s ``ModelConfig``, ``MoEConfig``, ``RWKVConfig``
-and ``HybridConfig``, restricted to what the port runs).
+"""Configuration dataclasses (the port's own copy of
+``repro.configs.base``'s ``ModelConfig``, ``MoEConfig``, ``RWKVConfig``,
+``HybridConfig``, ``PodRefreshConfig`` and ``MeshConfig`` with its
+``MESHES``, restricted to what the port runs).
 
 One ``ModelConfig`` per architecture lives in
 ``repro_torch/configs/<arch_id>.py``; each exposes ``config()`` (full
@@ -84,3 +85,51 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class PodRefreshConfig:
+    """Cadence and targets of the LIVE pod-k refresh (the two-level
+    bucketed sync only): every ``every`` steps the train driver measures
+    each bucket's realized mass capture on the live memory + gradient
+    buffers again and feeds the new per-bucket pod ks into the same step
+    (the k-padded wire of ``SyncConfig.pod_dynamic`` keeps every shape)."""
+
+    every: int = 0  # steps between re-calibrations (0 = off)
+    # mass-capture target for refreshes (None: SyncConfig.pod_mass_target)
+    mass_target: Optional[float] = None
+    # cross-pod bytes/step/worker each refresh water-fills
+    # (core.budget.BudgetController) instead of sizing for the mass
+    # target (None: SyncConfig.byte_budget; both None: the mass target)
+    byte_budget: Optional[int] = None
+    # cap on the static padded pod k as a fraction of bucket cols (None:
+    # the n_data * k_row support bound)
+    k_max_ratio: Optional[float] = None
+
+    @property
+    def enabled(self) -> bool:
+        return self.every > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """One named worker layout. ``n_pods > 1`` declares a (pod, data)
+    layout: the two-level hierarchical sync re-compresses at the pod
+    boundary and the batch splits over both. ``n_model`` is the
+    reference's tensor-parallel axis, which the port does not run
+    (``launch.mesh.mesh_from_config`` raises for n_model > 1)."""
+
+    name: str
+    n_pods: int
+    n_data: int
+    n_model: int = 1
+
+
+MESHES = {
+    # smoke layouts of 8 workers: the two-level pod sync's test layout
+    "smoke_1pod": MeshConfig("smoke_1pod", 1, 8, 1),
+    "smoke_2pod": MeshConfig("smoke_2pod", 2, 4, 1),
+    # production pods: 16 x 16 per pod, 2 pods across the slow link
+    "pod_256": MeshConfig("pod_256", 1, 16, 16),
+    "pod_2x256": MeshConfig("pod_2x256", 2, 16, 16),
+}

@@ -21,6 +21,10 @@ padding sits at the highest indices of the last row, so a padding entry
 is selected only into an all-zero tail, contributes nothing, and is
 sliced off by ``unpack``.
 
+``bucket_mass_capture``, ``simulate_pod_mean`` and
+``support_relative_capture`` measure what a bucket's top-k captures: the
+two-level sync's pod-k calibration reads them (``core.budget``).
+
 Leaves are visited in JAX's flatten order (dict keys sorted), so a plan
 built here equals the reference's plan for the same shapes: the same
 bucket order, placements, rows and cols.
@@ -30,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import densify_rows_ref, fused_memsgd_update
@@ -161,6 +166,51 @@ def unpack(plan: BucketPlan, buffers: Sequence[torch.Tensor],
             piece = piece.to(_dtype(pl.dtype))
         leaves.append(piece)
     return plan.treedef.unflatten(leaves)
+
+
+def bucket_mass_capture(buf: torch.Tensor, max_k: int) -> torch.Tensor:
+    """Mean per-row captured squared-mass fraction of a (rows, cols)
+    buffer for every k in 1..max_k: ``out[k-1]`` is the fraction of each
+    row's squared mass that its k largest-|.| entries hold, averaged over
+    rows (an all-zero row counts as fully captured). The curve needs only
+    the max_k largest squares of a row, in decreasing order:
+    ``torch.topk`` gives that prefix of the reference's full-row sort."""
+    max_k = max(1, min(int(max_k), buf.shape[-1]))
+    sq = torch.square(torch.abs(buf.to(torch.float32)))
+    captured = torch.cumsum(torch.topk(sq, max_k, dim=-1).values, dim=-1)
+    total = torch.sum(sq, dim=-1, keepdim=True)
+    del sq
+    frac = torch.where(total > 0, captured / torch.clamp(total, min=1e-30),
+                       1.0)
+    return torch.mean(frac, dim=0)
+
+
+def simulate_pod_mean(u: torch.Tensor, k_row: int) -> torch.Tensor:
+    """(n_shards, rows, cols) per-shard bucket buffers -> the intra-pod
+    mean the pod-stage selection sees: each shard's per-row top-``k_row``
+    (``kernels.row_topk``: decreasing |.|, ties to the lowest index, the
+    contract of the reference's ``jax.lax.top_k``), densified, summed
+    shard by shard, / n_shards. Overlapping shard selections (correlated
+    gradients) concentrate the mass, which is why the autotuner measures
+    capture on this proxy."""
+    from repro_torch.kernels import row_topk
+
+    n, rows, cols = u.shape
+    out = torch.zeros((rows, cols), dtype=torch.float32, device=u.device)
+    for shard in u:
+        vals, idx = row_topk(shard.to(torch.float32).contiguous(), k_row)
+        # a shard's indices are distinct within a row: one add each
+        out.scatter_add_(1, idx.to(torch.int64), vals)
+    return out.div_(n)
+
+
+def support_relative_capture(buf: torch.Tensor, support: int) -> np.ndarray:
+    """Mean per-row capture curve of a (rows, cols) buffer NORMALIZED
+    within the visible ``support`` (numpy, length ``support``): ``out[k-1]``
+    is the fraction of the mass the pod stage can see at all that the k
+    largest-|.| entries hold."""
+    frac = bucket_mass_capture(buf, support).cpu().numpy()
+    return frac / max(float(frac[-1]), 1e-30)
 
 
 def init_bucket_memory(plan: BucketPlan, dtype=torch.float32,

@@ -25,11 +25,16 @@ Torch has no uint32 shifts or gathers on the CPU, so the fields are
 packed in int64 and the buffer is viewed as uint32 only at its edge;
 collectives take its int32 view (``buf.view(torch.int32)``).
 
+3. **Repack** (``repack_spec``/``repack``/``repad``): the codec half of
+   the header-aware transport. A k-padded message (the runtime-k pod
+   sync) compacts to its live_n slots per row and re-expands to the
+   padded buffer bit for bit; ``message_nbytes(rows, cols, live_n)`` is
+   the compacted size.
+
 Not ported: the quantized value tier (``WireSpec(quant=)`` and
 ``message_nbytes(quant=)`` raise ``NotImplementedError``;
-``dequantize_rows`` and ``decode_quant`` are absent), and
-``repack``/``repad``/``repack_spec``, ``transcode`` and the snapshot codec
-(absent; ROADMAP lists them).
+``dequantize_rows`` and ``decode_quant`` are absent), ``transcode`` and
+the snapshot codec (absent; ROADMAP lists them).
 """
 from __future__ import annotations
 
@@ -56,7 +61,8 @@ _WORD = 1 << 32
 def _unported(name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{name} is not ported to the PyTorch port yet (the codec half of "
-        "repro.core.encoding is: accounting, WireSpec, encode/decode)")
+        "repro.core.encoding is: accounting, WireSpec, encode/decode, "
+        "repack/repad)")
 
 
 # ---------------------------------------------------------------------------
@@ -363,3 +369,76 @@ def live_n_of(buf) -> Optional[int]:
             f"corrupt wire header: live_n={n} exceeds the {n_sel} "
             f"laid-out slots per row")
     return n or None
+
+
+# ---------------------------------------------------------------------------
+# repack transport (codec half): compact a k-padded message to its live k
+# ---------------------------------------------------------------------------
+
+
+def repack_spec(spec: WireSpec, live_n: int) -> WireSpec:
+    """Layout of the compacted message a k-padded ``spec`` shrinks to at
+    ``live_n`` live slots per row: the same (rows, cols, dtype) at ``k =
+    max(1, live_n)`` (the codec ships at least one slot; a zero-live
+    message carries one (-0.0, 0) no-op pair)."""
+    if spec.kind != "sparse":
+        raise ValueError("repack applies to sparse wire messages only")
+    if not 0 <= live_n <= spec.n_sel:
+        raise ValueError(
+            f"live_n={live_n} out of range for n_sel={spec.n_sel}")
+    return dataclasses.replace(spec, k=max(1, int(live_n)))
+
+
+def repack(spec: WireSpec, buf: torch.Tensor, live_n: Optional[int] = None
+           ) -> Tuple[WireSpec, torch.Tensor]:
+    """Compact a k-padded message to its live payload before it crosses a
+    slow link: -> ``(small_spec, small_buf)`` laid out at
+    ``repack_spec(spec, live_n)``.
+
+    ``live_n`` defaults to the buffer's own header word (a host read);
+    a message with every slot live passes through unchanged. Lossless:
+    selections are contract-ordered, so the first live_n slots of each
+    row are the live pairs and the dropped tail is the (-0.0, 0)
+    identity. The small header keeps the live count, so ``repad``
+    restores the padded buffer bit for bit."""
+    if spec.kind != "sparse":
+        return spec, buf
+    if live_n is None:
+        live_n = live_n_of(buf)
+        if live_n is None:
+            return spec, buf
+    live_n = int(live_n)
+    if live_n >= spec.n_sel:
+        return spec, buf
+    small = repack_spec(spec, live_n)
+    vals, idx = decode(spec, buf)
+    return small, encode(small, vals[:, :small.k], idx[:, :small.k],
+                         live_n=live_n)
+
+
+def repad(spec: WireSpec, small_spec: WireSpec,
+          small_buf: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``repack``: re-expand a compacted message to the padded
+    ``spec`` layout, bit for bit the buffer ``repack`` was given: the tail
+    slots refill with the (-0.0, 0) identity and the live count is carried
+    over from the small header (a host read)."""
+    if small_spec == spec:
+        return small_buf
+    if spec.kind != "sparse" or small_spec.kind != "sparse":
+        raise ValueError("repad applies to sparse wire messages only")
+    if (small_spec.rows, small_spec.cols, small_spec.value_dtype) != (
+            spec.rows, spec.cols, spec.value_dtype):
+        raise ValueError(
+            f"repacked layout {small_spec} does not shrink {spec}")
+    if small_spec.k > spec.n_sel:
+        raise ValueError(
+            f"repacked k={small_spec.k} exceeds padded n_sel={spec.n_sel}")
+    raw_live = _host_header(small_buf)[LIVE_N_WORD]
+    pad = spec.n_sel - small_spec.k
+    vals, idx = decode(small_spec, small_buf)
+    vals = torch.cat([vals, torch.full((spec.rows, pad), -0.0,
+                                       dtype=vals.dtype, device=vals.device)],
+                     dim=1)
+    idx = torch.cat([idx, torch.zeros((spec.rows, pad), dtype=torch.int32,
+                                      device=idx.device)], dim=1)
+    return encode(spec, vals, idx, live_n=raw_live)

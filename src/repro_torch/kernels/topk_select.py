@@ -23,7 +23,8 @@ to count one run).
 The kernels are persistent; ``csrc/topk_select.cu`` plans each launch
 (warps per block, the row buffer in shared memory or the device-memory
 form, the grid) from the card's limits, and ``launch_geometry`` reports
-that plan.
+that plan. ``mask_live_k`` (plain PyTorch, no kernel) cuts a selection to
+a live k at its static shape.
 """
 from __future__ import annotations
 
@@ -161,3 +162,26 @@ def row_topk_threshold_cuda(x: torch.Tensor, k: int
     """Per-row top-|.|-k by the exact threshold select
     (``row_topk_threshold``)."""
     return _row_topk("row_topk_threshold", x, k)
+
+
+def mask_live_k(vals: torch.Tensor, idx: torch.Tensor, k_live: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Restrict a contract-ordered top-``k_max`` selection (..., k_max) to
+    its first ``k_live`` slots without changing shapes (the reference's
+    ``mask_live_k``, plain PyTorch as its is plain jnp): slots ``>=
+    k_live`` become (-0.0, 0).
+
+    Every selector returns pairs in decreasing |v|, ties to the lowest
+    index, so the first k_live slots of a top-k_max selection ARE the
+    top-k_live selection. -0.0 is the additive identity (``x + -0.0 == x``
+    bit for bit, both signed zeros included), so the padded slots scatter
+    as exact no-ops whatever order a scatter-add takes them in, though a
+    pad repeats index 0. ``k_live`` is a host int: the port's step is
+    eager, and the wire keeps its static k_max layout."""
+    k_live = int(k_live)
+    if k_live >= vals.shape[-1]:
+        return vals, idx
+    vals, idx = vals.clone(), idx.clone()
+    vals[..., k_live:] = -0.0
+    idx[..., k_live:] = 0
+    return vals, idx

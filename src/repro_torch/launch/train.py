@@ -24,6 +24,15 @@ subtracts the synced update from the parameters:
     fused CUDA kernel launch per sparse bucket forms u, selects and leaves
     the residual as the new memory, one (rows, cols) buffer per bucket.
 
+On a (pod, data) ``launch.mesh.Layout`` (``--pods``, ``--mesh``) the
+step's sync takes the layout, and with ``strategy="hierarchical"`` runs
+the two-level pod sync: ``train()`` then calibrates per-bucket pod ratios
+on the first batch (``PodRatioCalibrator``, ``tc.pod_autotune``) and, with
+``tc.pod_refresh``, re-calibrates the live pod ks every few steps from the
+live memory and gradients, feeding them to the same step as host ints
+(``SyncConfig.pod_dynamic``: every shape stays at its static k_max); a
+``pod_k_schedule`` replays a recorded schedule instead.
+
 As the reference donates its step inputs, the port updates ``params`` IN
 PLACE and returns them; the old memory is replaced by the sync's output.
 ``count`` is a host integer, so the eta schedule never waits on the
@@ -50,14 +59,22 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import os
+from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import PodRefreshConfig
 from repro_torch.core import buckets as bk
 from repro_torch.core.distributed import (
     SyncConfig,
+    _all_gather,
+    _densify_mean,
+    _exchange,
+    _mean,
+    autotune_pod_ratios,
     bucketed_message_bytes,
     bucketed_sync_gradients,
     distributed,
@@ -66,7 +83,9 @@ from repro_torch.core.distributed import (
     world_size,
 )
 from repro_torch.data.pipeline import take
+from repro_torch.kernels import row_topk
 from repro_torch.kernels.ref import eta32
+from repro_torch.launch.mesh import pod_axis_of
 from repro_torch.launch.sharding import sync_col_axes
 from repro_torch.optim.adam import bias_correction
 from repro_torch.utils.platform import resolve_device
@@ -85,6 +104,10 @@ class TrainConfig:
     eta_shift: float = 0.0  # a>0 enables eta_t = eta*a/(a + t) decay
     momentum: float = 0.9
     sync: SyncConfig = dataclasses.field(default_factory=SyncConfig)
+    # the two-level pod sync: calibrate per-bucket pod ratios on the first
+    # batch when sync.pod_ratios is unset, and the live refresh
+    pod_autotune: bool = True
+    pod_refresh: Optional[PodRefreshConfig] = None
 
 
 def _eta_schedule(tc: TrainConfig):
@@ -98,12 +121,17 @@ def _eta_schedule(tc: TrainConfig):
     return lambda t: eta
 
 
-def _sync_config(tc: TrainConfig) -> SyncConfig:
+def _sync_config(tc: TrainConfig, layout=None) -> SyncConfig:
+    """The step's sync config: the dense strategy for the dense optimizer,
+    and the pod axis of the layout when one is given (the reference's
+    from its mesh)."""
     if tc.optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {tc.optimizer!r}; options: "
                          f"{OPTIMIZERS}")
     strategy = "dense" if tc.optimizer == "dense" else tc.sync.strategy
-    return dataclasses.replace(tc.sync, strategy=strategy).validate()
+    pod_axis = (pod_axis_of(layout) if layout is not None
+                else tc.sync.pod_axis)
+    return dataclasses.replace(tc.sync, strategy=strategy, pod_axis=pod_axis)
 
 
 def _bucket_plan(sync: SyncConfig, pshapes):
@@ -115,7 +143,7 @@ def _bucket_plan(sync: SyncConfig, pshapes):
 
 
 def init_train_state(model, tc: TrainConfig, *, device="cuda", seed: int = 0,
-                     params=None):
+                     params=None, layout=None):
     """Returns (params, memory, opt, count): the port's seeded init on
     ``device`` (or the given ``params``), zero float32 memory, the
     optimizer mode's zero state (see the module docstring), count 0. The
@@ -124,7 +152,9 @@ def init_train_state(model, tc: TrainConfig, *, device="cuda", seed: int = 0,
     reference's carry a leading worker axis; in the port each worker's
     process holds its own)."""
     device = resolve_device(device)
-    plan = _bucket_plan(_sync_config(tc), model.param_shapes())
+    sync = _sync_config(tc, layout)
+    plan = _bucket_plan(sync, model.param_shapes())
+    sync.validate(plan)
     if params is None:
         params = model.init(seed=seed, device=device)
     if plan is not None:
@@ -196,34 +226,56 @@ def _mean_metrics(metrics):
     return out
 
 
-def make_train_step(model, tc: TrainConfig):
+def _grads(model, params, batch):
+    """(gradient leaves, metrics) of the model's loss on ``batch``, by
+    autograd through detached copies of the parameter leaves."""
+    leaves, treedef = tree_flatten(params)
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    loss, metrics = model.loss(treedef.unflatten(live), batch)
+    return torch.autograd.grad(loss, live), metrics
+
+
+def make_train_step(model, tc: TrainConfig, layout=None):
     """Builds the train step (see the module docstring). It runs on the
     device its inputs lie on; ``step.sync``, ``step.plan`` (None on the
     per-leaf path) and ``step.col_axes`` are the validated sync config,
-    the bucket plan and the per-leaf column axes it runs with."""
-    sync = _sync_config(tc)
+    the bucket plan and the per-leaf column axes it runs with; ``layout``
+    the (pod, data) ``launch.mesh.Layout`` its sync gathers over (None:
+    the flat default group).
+
+    With ``sync.pod_dynamic`` the step takes a sixth argument, ``pod_ks``:
+    one live pod k per bucket (host ints). ``step.pod_k_max`` holds each
+    bucket's static padded ceiling."""
+    sync = _sync_config(tc, layout)
     pshapes = model.param_shapes()
     plan = _bucket_plan(sync, pshapes)
+    sync.validate(plan)
+    if sync.strategy == "hierarchical" and sync.pod_axis and layout is None:
+        raise ValueError("the two-level sync (a pod_axis) needs a (pod, "
+                         "data) layout: pass layout=")
     col_axes = sync_col_axes(pshapes)
+    pod_k_max = None
+    if sync.pod_dynamic:
+        pod_k_max = tuple(
+            sync.pod_k_max_for_bucket(b, s.cols, layout.n_data)
+            if s.kind == "sparse" else 1 for b, s in enumerate(plan.buckets))
     eta_fn = _eta_schedule(tc)
     # adam_compressed: the memory accumulates raw gradients
     sync_eta = ((lambda t: 1.0) if tc.optimizer == "adam_compressed"
                 else eta_fn)
     apply_optimizer = make_apply_optimizer(tc, eta_fn)
 
-    def step(params, memory, opt, count, batch):
+    def step(params, memory, opt, count, batch, pod_ks=None):
         leaves, treedef = tree_flatten(params)
-        live = [p.detach().requires_grad_(True) for p in leaves]
-        loss, metrics = model.loss(treedef.unflatten(live), batch)
-        grads = torch.autograd.grad(loss, live)
-        del live, loss
+        grads, metrics = _grads(model, params, batch)
         if plan is not None:
             update, new_memory, _ = bucketed_sync_gradients(
-                sync, plan, memory, treedef.unflatten(grads), sync_eta(count))
+                sync, plan, memory, treedef.unflatten(grads), sync_eta(count),
+                layout=layout, pod_ks=pod_ks)
         else:
             update, new_memory, _ = sparse_sync_gradients(
                 sync, memory, treedef.unflatten(grads), sync_eta(count),
-                col_axes)
+                col_axes, layout=layout)
         del grads
         with torch.no_grad():
             opt = apply_optimizer(leaves, opt, count,
@@ -231,41 +283,244 @@ def make_train_step(model, tc: TrainConfig):
         return params, new_memory, opt, count + 1, _mean_metrics(metrics)
 
     step.sync, step.plan, step.col_axes = sync, plan, col_axes
+    step.layout, step.pod_k_max = layout, pod_k_max
     return step
 
 
+def _rank() -> int:
+    return torch.distributed.get_rank() if distributed() else 0
+
+
+class PodRatioCalibrator:
+    """Mass-capture calibration of the two-level pod sync's per-bucket pod
+    ks (the reference's ``PodRatioCalibrator``), measured as the reference
+    measures it: the global batch split into ``n_data`` shards, shard i's
+    u = m_i + eta*g_i with pod 0's worker i's memory (zero at the first
+    calibration), the pod stage simulated (each shard's per-row top-k_row,
+    densified, the mean over the shards; ``buckets.simulate_pod_mean``).
+    When the global batch does not split into n_data shards, or n_data is
+    1, the global batch's u with the mean of every worker's memory is the
+    proxy.
+
+    Across ranks: the global batch is gathered from the workers' slices;
+    pod 0's rank i forms shard i's u and its per-row top-k_row, one bucket
+    at a time, and the sync's own intra-pod stages move the selections:
+    the gather over pod 0's data group, then rank 0 densifies them shard
+    by shard in rank order (the reference's ``simulate_pod_mean`` order)
+    and / n_data. So each of those ranks holds one u at a time, where the
+    reference's host stack holds n_data copies, and only the (rows, k_row)
+    pairs move. Rank 0 measures the curves and allocates, and broadcasts
+    the ratios: every rank gets the same ks."""
+
+    def __init__(self, model, plan, layout, sync: SyncConfig):
+        self.model, self.plan, self.layout = model, plan, layout
+        self.sync = sync  # k_row and the allocation's target and budget
+
+    def _u(self, params, batch, eta, memory):
+        """Per sparse bucket u = eta * g (+ memory) on ``batch``; None for
+        the dense buckets."""
+        grads, _ = _grads(self.model, params, batch)
+        g = bk.pack(self.plan, tree_flatten(params)[1].unflatten(grads),
+                    dtype=torch.float32)
+        del grads
+        out = []
+        for b, spec in enumerate(self.plan.buckets):
+            if spec.kind == "dense":
+                out.append(None)
+                continue
+            u = g[b].mul_(eta32(eta))
+            out.append(u if memory is None else u.add_(memory[b]))
+            g[b] = None
+        return out
+
+    def u_bufs(self, params, batch, eta, memory=None):
+        """On rank 0 the per-bucket (rows, cols) buffers the allocation
+        measures (the simulated pod mean, or the global u), None for the
+        dense buckets; None on the other ranks. Every rank must call it."""
+        lay = self.layout
+        n_data = lay.n_data
+        full = {k: _all_gather(v).flatten(0, 1) for k, v in batch.items()}
+        B = next(iter(full.values())).shape[0]
+        if B % n_data == 0 and n_data > 1:
+            if lay.pod != 0:
+                return None
+            n = B // n_data
+            shard = {k: v[lay.data * n:(lay.data + 1) * n]
+                     for k, v in full.items()}
+            out = []
+            for u in self._u(params, shard, eta, memory):
+                if u is not None:
+                    k_row = self.sync.k_for(u.shape[1])
+                    vals, idx = row_topk(u, k_row)
+                    gv, gi = _exchange(self.sync, vals, idx, u.shape[1],
+                                       lay.data_group)
+                    del vals, idx
+                    u = (_densify_mean(u.zero_(), 1, gv, gi, k_row)
+                         if lay.rank == 0 else None)
+                    del gv, gi
+                out.append(u)
+            return out if lay.rank == 0 else None
+        mean_m = None
+        if memory is not None:
+            mean_m = [_mean(m) if spec.kind == "sparse" else None
+                      for spec, m in zip(self.plan.buckets, memory)]
+        if lay.rank != 0:
+            return None
+        return self._u(params, full, eta, mean_m)
+
+    def ratios(self, params, batch, eta, memory=None, *, mass_target=None,
+               k_caps=None, byte_budget=None) -> tuple:
+        """Per-bucket pod ratios (``_calibrate_pod_ratios`` on rank 0's
+        buffers), the same on every rank."""
+        bufs = self.u_bufs(params, batch, eta, memory)
+        out = torch.zeros(len(self.plan.buckets), dtype=torch.float64,
+                          device=next(iter(batch.values())).device)
+        if bufs is not None:
+            out.copy_(torch.tensor(_calibrate_pod_ratios(
+                self.sync, self.plan, bufs, self.layout.n_data,
+                mass_target=mass_target, k_caps=k_caps,
+                byte_budget=byte_budget), dtype=torch.float64))
+        del bufs
+        torch.distributed.broadcast(out, 0)
+        return tuple(out.tolist())
+
+
+def _calibrate_pod_ratios(sync_cfg, plan, u_bufs, n_data, mass_target=None,
+                          k_caps=None, byte_budget=None):
+    """Per-bucket pod ratios from measured buffers, in either sizing mode:
+    a byte budget (the argument, else ``SyncConfig.byte_budget``)
+    water-fills the cross-pod allowance over the buckets
+    (``core.budget.BudgetController``); otherwise the mass-target
+    autotune sizes each bucket on its own."""
+    budget = (byte_budget if byte_budget is not None
+              else sync_cfg.byte_budget)
+    if budget is not None:
+        from repro_torch.core.budget import BudgetController
+
+        ctl = BudgetController(sync_cfg, plan, n_data, k_caps=k_caps)
+        return ctl.ratios_of(ctl.allocate(u_bufs, byte_budget=budget))
+    return autotune_pod_ratios(sync_cfg, plan, u_bufs, n_data=n_data,
+                               mass_target=mass_target, k_caps=k_caps)
+
+
+def _maybe_autotune_pod_ratios(model, layout, tc: TrainConfig, plan, params,
+                               batches, calib=None):
+    """The calibration pass of the two-level pod sync: when training
+    hierarchical and bucketed on a pod layout with no explicit
+    ``sync.pod_ratios``, peek the first batch, measure each bucket's
+    realized mass capture (u = eta*g at zero memory) and set per-bucket
+    pod ratios before the step is built. Returns ``(tc, batches)`` with
+    the peeked batch pushed back."""
+    if not (tc.pod_autotune and plan is not None
+            and tc.sync.strategy == "hierarchical"
+            and pod_axis_of(layout) is not None
+            and tc.sync.pod_ratios is None):
+        return tc, batches
+    first = next(batches, None)
+    if first is None:
+        return tc, batches
+    sync = _sync_config(tc, layout)
+    calib = calib or PodRatioCalibrator(model, plan, layout, sync)
+    ratios = calib.ratios(params, first, tc.eta)
+    tc = dataclasses.replace(
+        tc, sync=dataclasses.replace(tc.sync, pod_ratios=ratios))
+    lv = bucketed_message_bytes(
+        dataclasses.replace(sync, pod_ratios=ratios), plan, by_level=True,
+        n_data=layout.n_data)
+    if _rank() == 0:
+        print("pod autotune: ratios=" + ",".join(f"{r:.4g}" for r in ratios)
+              + f"  intra-pod {lv['intra']}B cross-pod {lv['cross']}B "
+              "/step/worker")
+    return tc, itertools.chain([first], batches)
+
+
+def _telemetry_bytes(model, step, pod_ks=None) -> dict:
+    """Per-step wire accounting for the telemetry sink: ``{"intra",
+    "cross", "total"}`` on a pod layout (``pod_ks``: the live ks, as the
+    repack transport ships them), else ``{"total"}``."""
+    if step.plan is None:
+        return {"total": message_bytes(step.sync, model.param_shapes(),
+                                       step.col_axes)}
+    if pod_axis_of(step.layout) is not None:
+        return bucketed_message_bytes(step.sync, step.plan, by_level=True,
+                                      n_data=step.layout.n_data,
+                                      pod_ks=pod_ks)
+    return {"total": bucketed_message_bytes(step.sync, step.plan)}
+
+
 def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
-          seed: int = 0, params=None, log_every: int = 10, telemetry=None):
+          seed: int = 0, params=None, log_every: int = 10, telemetry=None,
+          layout=None, pod_k_schedule=None):
     """End-to-end training loop on ``device`` (CUDA unless the caller asks
     for the CPU). ``batches``: iterator of batches already on ``device``
-    (see ``repro_torch.data.DeviceBatcher``). Returns (params, memory,
-    opt, count, history) with history the logged (step, loss) pairs.
+    (see ``repro_torch.data.DeviceBatcher``; this worker's slice under
+    ``torch.distributed``). ``layout``: the (pod, data)
+    ``launch.mesh.Layout``, or None. Returns (params, memory, opt, count,
+    history) with history the logged (step, loss) pairs.
 
     ``telemetry`` — a ``repro_torch.utils.telemetry.Telemetry`` sink fed
-    every step's loss; when omitted an internal sink runs, so a NaN/inf
-    loss raises ``NonFiniteLossError`` (carrying the partial ``history``)
-    instead of training on garbage. Each step's device loss is read only
-    after the NEXT step has been issued, so the host's read never waits
-    on the step it just issued."""
+    every step's loss and bytes; when omitted an internal sink runs, so a
+    NaN/inf loss raises ``NonFiniteLossError`` (carrying the partial
+    ``history``) instead of training on garbage. Each step's device loss
+    is read only after the NEXT step has been issued, so the host's read
+    never waits on the step it just issued.
+
+    The two-level pod sync: with ``tc.pod_refresh`` enabled, the
+    per-bucket pod ks re-calibrate every ``pod_refresh.every`` steps from
+    the live memory and gradient buffers and go to the same step as host
+    ints (clamped to its static ``pod_k_max``), each recorded in the
+    telemetry's ``refresh_schedule``. ``pod_k_schedule``, a sequence of
+    ``(step, ks)``,
+    REPLAYS a recorded schedule instead of calibrating: a run fed the
+    refreshed run's ``telemetry.refresh_schedule`` reproduces it bit for
+    bit."""
     device = resolve_device(device)
+    refresh = tc.pod_refresh if (
+        tc.pod_refresh is not None and tc.pod_refresh.enabled) else None
+    if refresh is not None or pod_k_schedule is not None:
+        kw = {"pod_dynamic": True}
+        if refresh is not None and refresh.k_max_ratio is not None:
+            kw["pod_k_max_ratio"] = refresh.k_max_ratio
+        tc = dataclasses.replace(tc, sync=dataclasses.replace(tc.sync, **kw))
+    plan = _bucket_plan(tc.sync, model.param_shapes())
+    dyn = tc.sync.pod_dynamic
+    if dyn and (plan is None or tc.sync.strategy != "hierarchical"
+                or pod_axis_of(layout) is None):
+        raise ValueError(
+            "pod_refresh / pod_k_schedule / sync.pod_dynamic require "
+            "sync.bucketed, strategy='hierarchical' and a (pod, data) layout")
     params, memory, opt, count = init_train_state(
-        model, tc, device=device, seed=seed, params=params)
-    step = make_train_step(model, tc)
+        model, tc, device=device, seed=seed, params=params, layout=layout)
+    batches = iter(batches)
+    calib = (PodRatioCalibrator(model, plan, layout,
+                                _sync_config(tc, layout)) if dyn else None)
+    tc, batches = _maybe_autotune_pod_ratios(model, layout, tc, plan, params,
+                                             batches, calib=calib)
+    step = make_train_step(model, tc, layout)
+    eta_fn = _eta_schedule(tc)
     tel_owned = telemetry is None
     tel = telemetry if telemetry is not None else Telemetry()
-    tel.set_bytes_per_step({"total": (
-        bucketed_message_bytes(step.sync, step.plan) if step.plan is not None
-        else message_bytes(step.sync, model.param_shapes(), step.col_axes))})
+    live_ks = None
+    sched = dict(pod_k_schedule) if pod_k_schedule is not None else None
+    if dyn:
+        live_ks = tuple(
+            step.sync.pod_k_for_bucket(b, s.cols) if s.kind == "sparse" else 1
+            for b, s in enumerate(plan.buckets))
+    tel.initial_pod_ks = live_ks
+    bytes_live = _telemetry_bytes(model, step, live_ks)
+    tel.set_bytes_per_step(bytes_live)
     history = []
 
     # one-step-late loss readback: float(loss) blocks until the step that
     # produced it has run, so it is drained only after the next step is
-    # issued (detection and printing lag one step)
+    # issued (detection and printing lag one step); the byte accounting
+    # in effect at issue rides along
     pending = None
 
     def _drain(rec):
-        idx, dev_loss, log_rec = rec
+        idx, dev_loss, log_rec, bytes_rec = rec
         loss = float(dev_loss)
+        tel.set_bytes_per_step(bytes_rec)
         try:
             tel.step(idx, loss, log=log_rec)
         except NonFiniteLossError as e:
@@ -277,12 +532,39 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
             history.append((idx, loss))
 
     for i, batch in enumerate(take(batches, n_steps)):
+        if dyn and sched is not None and i in sched:
+            # clamped here, so that the recorded schedule and the bytes
+            # describe the ks the wire carries
+            live_ks = tuple(max(1, min(int(k), int(c)))
+                            for k, c in zip(sched[i], step.pod_k_max))
+            tel.pod_refresh(i, live_ks)
+            bytes_live = _telemetry_bytes(model, step, live_ks)
+        elif (dyn and sched is None and refresh is not None and i > 0
+              and i % refresh.every == 0):
+            # at the eta the step applies (adam_compressed's memory takes
+            # raw gradients: 1.0), on the state before step i
+            eta_now = (eta_fn(i) if tc.optimizer != "adam_compressed"
+                       else 1.0)
+            ratios = calib.ratios(
+                params, batch, eta_now, memory,
+                mass_target=refresh.mass_target, k_caps=step.pod_k_max,
+                byte_budget=refresh.byte_budget)
+            live_ks = tuple(int(round(r * s.cols)) if s.kind == "sparse"
+                            else 1 for r, s in zip(ratios, plan.buckets))
+            bytes_live = _telemetry_bytes(model, step, live_ks)
+            if _rank() == 0:
+                print(f"pod refresh @ step {i}: ks="
+                      + ",".join(str(k) for k in live_ks)
+                      + f"  effective cross-pod {bytes_live['cross']}B "
+                      "/step/worker")
+            tel.pod_refresh(i, live_ks, cross_bytes=bytes_live["cross"])
+        args = (live_ks,) if dyn else ()
         params, memory, opt, count, metrics = step(params, memory, opt,
-                                                   count, batch)
+                                                   count, batch, *args)
         do_log = bool(log_every and (i % log_every == 0 or i == n_steps - 1))
         if pending is not None:
             _drain(pending)
-        pending = (i, metrics["loss"], do_log)
+        pending = (i, metrics["loss"], do_log, bytes_live)
         if tel.should_stop:
             print(f"telemetry early stop @ step {i}: {tel.stop_reason}")
             break
@@ -293,20 +575,30 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
     return params, memory, opt, count, history
 
 
+# the CLI's sync flags that a preset takes as overrides: flag -> field
+_OVERRIDES = (("ratio", "ratio"), ("strategy", "strategy"), ("wire", "wire"),
+              ("pod_ratio", "pod_ratio"),
+              ("pod_mass_target", "pod_mass_target"),
+              ("pod_k_max_ratio", "pod_k_max_ratio"),
+              ("byte_budget", "byte_budget"), ("repack", "repack"))
+
+
 def _sync_from_args(ap, args) -> SyncConfig:
     """The sync config of the CLI. With ``--preset`` the named
     ``SyncConfig.preset`` bundle is the base and only flags given
     explicitly (other than their default) override it, as the reference's
-    ``_sync_from_args`` does."""
+    ``_sync_from_args`` does. ``--pod-refresh-every`` implies the bucketed
+    path."""
+    bucketed = args.bucketed or args.pod_refresh_every > 0
     if args.preset is not None:
-        overrides = {key: getattr(args, key)
-                     for key in ("ratio", "strategy", "wire")
-                     if getattr(args, key) != ap.get_default(key)}
-        if args.bucketed:
+        overrides = {field: getattr(args, flag) for flag, field in _OVERRIDES
+                     if getattr(args, flag) != ap.get_default(flag)}
+        if bucketed:
             overrides["bucketed"] = True
         return SyncConfig.preset(args.preset, **overrides)
-    return SyncConfig(ratio=args.ratio, strategy=args.strategy,
-                      bucketed=args.bucketed, wire=args.wire)
+    return SyncConfig(bucketed=bucketed,
+                      **{field: getattr(args, flag)
+                         for flag, field in _OVERRIDES})
 
 
 def _join_workers(platform: str) -> bool:
@@ -321,6 +613,19 @@ def _join_workers(platform: str) -> bool:
     return True
 
 
+def _layout_from_args(args):
+    """The worker layout of ``--mesh`` or ``--pods`` (None: the flat
+    default group); a layout the workers do not fill raises."""
+    from repro_torch.configs import MESHES
+    from repro_torch.launch.mesh import make_layout, mesh_from_config
+
+    if args.mesh:
+        return mesh_from_config(MESHES[args.mesh])
+    if args.pods > 1:
+        return make_layout(args.pods)
+    return None
+
+
 def main(argv=None):
     """CLI: train an architecture's SMOKE variant end to end.
 
@@ -328,11 +633,14 @@ def main(argv=None):
             [--wire packed] [--platform cpu]
         torchrun --nproc_per_node 2 -m repro_torch.launch.train \
             --platform cpu --preset topk --ratio 0.02
+        torchrun --nproc_per_node 4 -m repro_torch.launch.train \
+            --platform cpu --pods 2 --strategy hierarchical --bucketed \
+            --wire packed --pod-refresh-every 2
 
     Each worker trains on its slice of the global ``--batch``; only rank
     0 prints.
     """
-    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.configs import ARCH_IDS, MESHES, get_smoke_config
     from repro_torch.data import ShardedBatcher, token_batches
     from repro_torch.models import build_model
 
@@ -344,6 +652,40 @@ def main(argv=None):
     ap.add_argument("--eta", type=float, default=0.5)
     ap.add_argument("--ratio", type=float, default=0.01)
     ap.add_argument("--strategy", default="sparse_allgather")
+    ap.add_argument("--mesh", default=None, choices=sorted(MESHES),
+                    help="named worker layout (repro_torch.configs.MESHES); "
+                         "its workers must be the run's")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="split the workers into this many pods (a (pod, "
+                         "data) layout: the hierarchical strategy "
+                         "re-compresses at the pod boundary)")
+    ap.add_argument("--pod-ratio", type=float, default=None,
+                    help="global pod re-compression ratio (hierarchical); "
+                         "autotuned per bucket by default")
+    ap.add_argument("--pod-mass-target", type=float, default=0.9,
+                    help="mass-capture target of the per-bucket pod-ratio "
+                         "autotune")
+    ap.add_argument("--no-pod-autotune", action="store_true",
+                    help="no per-bucket pod-ratio calibration")
+    ap.add_argument("--pod-refresh-every", type=int, default=0,
+                    help="re-calibrate the per-bucket pod ks every N steps "
+                         "from the live memory and gradients (the k-padded "
+                         "runtime pod k; needs --strategy hierarchical on a "
+                         "pod layout, implies --bucketed; 0: off)")
+    ap.add_argument("--pod-k-max-ratio", type=float, default=None,
+                    help="cap the static padded pod k at this fraction of "
+                         "the bucket's cols (default: the n_data * k_row "
+                         "support bound)")
+    ap.add_argument("--byte-budget", type=int, default=None,
+                    help="cross-pod bytes per step per worker: the pod ks "
+                         "water-fill it over the buckets by marginal mass "
+                         "per byte (repro_torch.core.budget) instead of "
+                         "the mass-capture target")
+    ap.add_argument("--repack", action="store_true",
+                    help="the header-aware repack boundary before the "
+                         "cross-pod gather (the identity inside a step; "
+                         "the cross-pod bytes are accounted at the live "
+                         "pod k)")
     ap.add_argument("--bucketed", action="store_true",
                     help="flat-buffer bucketed sync (repro_torch.core."
                          "buckets); without it, the per-leaf sync")
@@ -352,7 +694,7 @@ def main(argv=None):
                              "pod_budgeted"),
                     help="start from a named SyncConfig.preset; other "
                          "sync flags given EXPLICITLY override its fields "
-                         "(qsparse_local and pod_budgeted are not ported)")
+                         "(qsparse_local is not ported)")
     ap.add_argument("--wire", default="unpacked",
                     choices=("unpacked", "packed"),
                     help="sync wire format (repro_torch.core.encoding)")
@@ -371,17 +713,23 @@ def main(argv=None):
         torch.cuda.set_device(device)
     made = _join_workers(args.platform)
     try:
-        rank = torch.distributed.get_rank() if distributed() else 0
+        rank = _rank()
+        layout = _layout_from_args(args)
         cfg = get_smoke_config(args.arch)
         model = build_model(cfg)
-        tc = TrainConfig(optimizer=args.optimizer, eta=args.eta, sync=sync)
+        refresh = (PodRefreshConfig(every=args.pod_refresh_every,
+                                    k_max_ratio=args.pod_k_max_ratio)
+                   if args.pod_refresh_every > 0 else None)
+        tc = TrainConfig(optimizer=args.optimizer, eta=args.eta, sync=sync,
+                         pod_autotune=not args.no_pod_autotune,
+                         pod_refresh=refresh)
         batches = ShardedBatcher(
             token_batches(cfg.vocab_size, args.batch, args.seq, seed=0),
             device)
         tel = Telemetry(printer=print if rank == 0 else lambda line: None)
         with tel:
             return train(model, tc, batches, n_steps=args.steps,
-                         device=device, telemetry=tel)
+                         device=device, telemetry=tel, layout=layout)
     finally:
         if made:
             torch.distributed.destroy_process_group()

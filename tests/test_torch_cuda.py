@@ -780,3 +780,72 @@ def test_random_operators_draw_on_the_card():
         sorted(idx.tolist())
     kept = random_coordinate(16.0).dense(target, gen)
     assert 0 < int((kept != 0).sum()) < d
+
+
+def _pod_mean_rows(rows, cols, k_row, n_data, seed):
+    """A pod mean as the two-level sync forms it: n_data shards' per-row
+    top-k_row, densified, summed, / n_data (at most n_data * k_row
+    nonzeros a row, zeros of both signs among them)."""
+    rng = np.random.default_rng(seed)
+    out = torch.zeros((rows, cols))
+    for _ in range(n_data):
+        u = torch.from_numpy(rng.standard_normal((rows, cols)).astype(
+            np.float32))
+        u[::7] = -0.0
+        vals, idx = row_topk_ref(u, k_row)
+        out.scatter_add_(1, idx.long(), vals)
+    return out / n_data
+
+
+@pytest.mark.parametrize("k_live", [1, 7, 20])
+def test_mask_live_k_and_the_pod_reselect_on_the_card(k_live):
+    """The pod re-select (both top-k kernels at k_max = n_data * k_row on a
+    pod mean, mostly zeros) and ``mask_live_k`` on CUDA tensors, bit for
+    bit their plain versions."""
+    _need_card()
+    pm = _pod_mean_rows(300, 1024, 10, 2, seed=k_live)
+    want = topk_select.mask_live_k(*row_topk_ref(pm, 20), k_live)
+    for fn in (row_topk_loop_cuda, row_topk_threshold_cuda):
+        got = topk_select.mask_live_k(*fn(pm.cuda(), 20), k_live)
+        for a, b in zip(got, want):
+            assert a.is_cuda
+            assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+def test_two_level_sync_on_the_card_matches_the_cpu(tmp_path):
+    """The two-level bucketed sync (runtime pod k, packed wire, the repack
+    boundary) over a (1, 1) gloo layout on the card: the CPU's update,
+    memory and realized bytes bit for bit, from the same inputs."""
+    _need_card()
+    import torch.distributed as dist
+
+    from repro_torch.core import buckets as bk
+    from repro_torch.core.distributed import bucketed_sync_gradients
+    from repro_torch.launch.mesh import make_layout
+
+    rng = np.random.default_rng(5)
+    grads = {"w": torch.from_numpy(rng.standard_normal((300, 700)).astype(
+        np.float32)), "b": torch.from_numpy(rng.standard_normal(90).astype(
+            np.float32))}
+    plan = bk.make_plan(grads, cols=1024, dense_below=100)
+    mem = [torch.from_numpy(rng.standard_normal(s.shape).astype(np.float32))
+           for s in plan.buckets]
+    cfg = SyncConfig.preset("pod_budgeted", ratio=0.02, pod_axis="pod")
+    ks = tuple(5 if s.kind == "sparse" else 1 for s in plan.buckets)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        layout = make_layout(1, 1)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            level = {"intra": 0, "cross": 0}
+            upd, new_m, nbytes = bucketed_sync_gradients(
+                cfg, plan, [m.to(dev) for m in mem],
+                tree_map(lambda t: t.to(dev), grads), 0.3, layout=layout,
+                pod_ks=ks, level_bytes=level)
+            out[dev] = (tree_leaves(upd) + list(new_m), nbytes, level)
+    finally:
+        dist.destroy_process_group()
+    assert out["cpu"][1:] == out["cuda"][1:]
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))

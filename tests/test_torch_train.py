@@ -410,8 +410,9 @@ def test_cuda_without_a_gpu_raises():
 
 
 @pytest.mark.parametrize("tc,err", [
-    (TrainConfig(sync=SyncConfig(strategy="hierarchical")),
-     NotImplementedError),  # the per-leaf path, two-level sync
+    (TrainConfig(sync=SyncConfig(strategy="hierarchical", pod_axis="pod",
+                                 value_dtype="bfloat16")),
+     NotImplementedError),  # the two-level sync at bf16 wire values
     (TrainConfig(sync=SyncConfig(bucketed=True, wire="packed", quant=4)),
      NotImplementedError),  # the quant wire (QSGD levels)
     (TrainConfig(optimizer="sgd", sync=SyncConfig(bucketed=True)),
@@ -576,6 +577,9 @@ def test_cli_arch_reaches_every_ported_arch(arch):
     (["--preset", "dense", "--bucketed"], "dense", dict(bucketed=True)),
     (["--preset", "dense", "--strategy", "sparse_allgather", "--ratio",
       "0.05"], "dense", dict(ratio=0.05)),
+    (["--preset", "pod_budgeted", "--byte-budget", "185587",
+      "--pod-mass-target", "0.8"], "pod_budgeted",
+     dict(byte_budget=185587, pod_mass_target=0.8)),
 ])
 def test_cli_preset_matches_reference(argv, name, overrides):
     """Explicit flags override the preset's fields, as the reference's
@@ -583,7 +587,9 @@ def test_cli_preset_matches_reference(argv, name, overrides):
     got = _cli_sync(argv)
     want = RefSyncConfig.preset(name, **overrides)
     for field in ("strategy", "ratio", "bucketed", "wire", "value_dtype",
-                  "k_min", "k_max", "local_steps", "quant"):
+                  "k_min", "k_max", "local_steps", "quant", "pod_ratio",
+                  "pod_mass_target", "pod_dynamic", "pod_k_max_ratio",
+                  "repack", "byte_budget"):
         assert getattr(got, field) == getattr(want, field), field
 
 
