@@ -38,6 +38,27 @@ Phases, each of which fails the run with a non-zero exit:
    threshold branch at qwen3-4b's bucket (C = 1024), k = 1 ... 33, 48,
    64, upward then downward, twice, the card's clocks sampled beside it:
    each branch's median and range, which give FUSED_LOOP_CUTOVER.
+   The bf16 forms of the three kernels: both top-k kernels on bf16 rows
+   (every design edge above rounded to bf16, then bf16's own: a list
+   that overflows at 8 values to a 16-byte word, bf16 subnormals, k above
+   the list's capacity and k = C, C % 8 != 0, rows 2 bytes past
+   alignment, rows of 4, a row wider than shared memory) and the fused
+   kernel's two branches with bf16 m and float32 or bf16 g (its design
+   edges, eta 0 and 0.37, the widest bf16 rows, the pod sync's bucket at
+   k = 10 and 20), bitwise against the plain versions, each launch
+   counted under its bf16 name; each timed beside its plain version, the
+   library call, its bytes bound and its float32 form on the same values
+   (the top-k kernels at the pod re-select's (496345, 1024), k = 20, on a
+   bf16 pod mean, and at (40960, 2560), k = 26; the fused kernel at
+   qwen3-4b's (1154560, 1024) bucket), and the bf16 fused sweep there
+   (loop against threshold branch over k, which gives
+   FUSED_LOOP_CUTOVER_BF16). Then ``bucket_memory_step`` over bf16
+   memory on qwen3-4b's gradient tree (4 layers, full width), from a
+   first step's memory, with method "threshold" and "auto" (the loop
+   branch at k = 10: one launch of each bf16 branch), each held bitwise
+   against the plain version on the card at that bucket and the two
+   bitwise equal, and on a small input the card's step bitwise the
+   CPU's.
 4. The bucketed path: ``train()`` of the bucketed Mem-SGD step on
    qwen3-4b at full width, depth cut to 4 layers, from the port's own
    seeded init (k = 10: the fused kernel's branch that the fused cutover
@@ -154,11 +175,20 @@ Phases, each of which fails the run with a non-zero exit:
    ``pod_budgeted`` preset at a cross-pod byte budget, 4 steps; a small
    input (card vs CPU: loss 1e-5, gradients 1e-3 relative L2, then the
    4-rank sync from the card's gradients bitwise on both devices) and a constant live pod k against
-   the static pod k through ``train()`` (params and memory bitwise). Each
-   run's losses must be finite from near ln V, falling and equal on every
-   rank, its params bitwise equal on every rank, and its launches one
-   fused and one re-select launch per sparse bucket a step (and on pod
-   0's ranks one calibration top-k per calibration).
+   the static pod k through ``train()`` (params and memory bitwise). Then
+   the chain at bf16 wire values (``value_dtype="bfloat16"``,
+   threshold_onehot, autotuned, refreshed every 2 steps), 3 steps: one
+   launch of the bf16 re-select kernel a step a rank (the loop at k_max =
+   20), params bitwise on every rank; two probe syncs on its state
+   (argmax_onehot: the float32 loop kernel on the pod mean's float32
+   keys, as the reference's compiled argmax loop keeps them; topk_scatter:
+   the bf16 threshold kernel), each level's realized bytes equal to the
+   accounting at bf16, the update bitwise on every rank and between the
+   two. Each run's losses must be finite from near ln V,
+   falling and equal on every rank, its params bitwise equal on every
+   rank, and its launches one fused and one re-select launch per sparse
+   bucket a step (and on pod 0's ranks one calibration top-k per
+   calibration).
 
 Phase 3 runs the kernels at every architecture's shapes: the fused
 kernel at each bucket (qwen3-4b's, rwkv6-3b's, the two MoE configs',
@@ -172,15 +202,18 @@ Prints each architecture's launches per kernel in each of its runs on a
 ``{"launches_by_arch": ...}`` line, the optimizer modes', the logistic
 regression runs' and the pod sync's (by rank) on a
 ``{"launches_by_path": ...}`` line, then a
-``{"kernels": [...]}`` line (this slice's main configuration's,
-granite-moe-3b-a800m's, shapes and launches: each kernel's count from
-one run, named by ``launches_from``), then the card's name and power
-limit, then the result line ``{"ok": true, "device": {...}}`` last.
+``{"kernels": [...]}`` line (the float32 kernels at granite-moe-3b-a800m's
+shapes and launches, the bf16 forms at the pod sync's shapes with the
+launches of the bf16 pod run, its topk_scatter probe and the bf16 bucket
+memory's steps: each kernel's count from one run, named by
+``launches_from``), then the card's name and power limit, then the
+result line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import math
 import os
@@ -289,6 +322,21 @@ BUCKETS = {arch: (shape, ETAS[arch]) for arch, shape in (
     (ARCH, PATH_SHAPE), (RWKV_ARCH, RWKV_SHAPE), (MOE_ARCH, MOE_SHAPE),
     (QMOE_ARCH, QMOE_SHAPE), (GRIFFIN_ARCH, GRIFFIN_SHAPE))}
 BUCKETS[f"{POD_ARCH} {POD_LAYERS}-layer pod sync"] = (POD_SHAPE, POD_ETA)
+# the bf16 forms of the three kernels: the top-k kernels at the pod
+# re-select's shape at bf16 wire values (k_max = 20 on a bf16 pod mean)
+# and at one per-leaf width; the fused kernel held bitwise at the pod
+# sync's bucket, and timed and swept at qwen3-4b's bucket, where
+# bucket_memory_step launches it over bf16 memory (phase_bf16_memory), at
+# the bucketed path's and the topk preset's k, with float32 g (what
+# bucket_memory_step packs) and bf16 g; each timed beside its float32 form
+BF16 = torch.bfloat16
+BF16_TOPK_SHAPES = ((POD_SHAPE, 2 * PATH_K), ((40960, 2560), 26))
+BF16_FUSED_SHAPE = PATH_SHAPE
+BF16_SWEEP_KS = (1, 2, 4, 8, 10, 12, 16, 20, 26, 32, 33, 64)
+# the pod phase's bf16 run (hierarchical, packed, bf16 wire values,
+# threshold_onehot: its re-select is the bf16 row top-k on the bf16 pod
+# mean; autotuned and refreshed every POD_REFRESH steps)
+POD_BF16_STEPS = 3
 # the per-leaf rows narrower than this are timed on their own
 NARROW_C = 1024
 KERNEL_SOURCES = ("fused_memsgd", "topk_select")
@@ -366,13 +414,17 @@ def phase_build() -> None:
 
 
 def launch_counts() -> dict:
-    """Every kernel's launches: the fused kernel's per branch
-    ("fused_memsgd" is its loop branch), and the two top-k kernels'."""
+    """Every kernel's launches: the fused kernel's per branch and m dtype
+    ("fused_memsgd" is its float32 loop branch), and the two top-k
+    kernels' per dtype (the bf16 forms' under "<name>_bf16")."""
     from repro_torch.kernels.fused_memsgd import SELECTION_LAUNCHES
     from repro_torch.kernels.topk_select import LAUNCHES
 
-    return {"fused_memsgd": SELECTION_LAUNCHES["loop"],
-            "fused_memsgd_threshold": SELECTION_LAUNCHES["threshold"],
+    fused = SELECTION_LAUNCHES
+    return {"fused_memsgd": fused["loop"],
+            "fused_memsgd_threshold": fused["threshold"],
+            "fused_memsgd_bf16": fused["loop_bf16"],
+            "fused_memsgd_threshold_bf16": fused["threshold_bf16"],
             **LAUNCHES}
 
 
@@ -449,9 +501,12 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def fused_library(m, g, eta, k):
     """One PyTorch library top-k (torch.topk + gather + scatter) computing
-    the fused step; a yardstick only, never called by the port. torch.topk
-    promises no tie order, so it is timed, not compared."""
-    u = torch.add(m, torch.mul(g, eta))
+    the fused step (u = m + eta * g in m's dtype, eta and g rounded to
+    it); a yardstick only, never called by the port. torch.topk promises
+    no tie order, so it is timed, not compared."""
+    from repro_torch.kernels.ref import eta_as
+
+    u = torch.add(m, torch.mul(g.to(m.dtype), eta_as(eta, m.dtype)))
     _, idx = torch.topk(torch.abs(u), k, dim=1)
     vals = torch.gather(u, 1, idx)
     return u.scatter_(1, idx, 0.0), vals, idx
@@ -590,11 +645,13 @@ def fused_branch_cases(dev):
     yield f"widest loop row (2,{C}) k=300", m, g, 0.37, 300, ("loop",)
 
 
-def fused_plan_text(selection: str, rows: int, cols: int) -> str:
+def fused_plan_text(selection: str, rows: int, cols: int,
+                    m_dtype=torch.float32, g_dtype=torch.float32) -> str:
     """The fused kernel's launch geometry for an (rows, cols) input."""
     from repro_torch.kernels.fused_memsgd import launch_geometry
 
-    g = launch_geometry(selection, rows, cols, torch.device("cuda", 0))
+    g = launch_geometry(selection, rows, cols, torch.device("cuda", 0),
+                        m_dtype, g_dtype)
     return (f"{selection} {g.blocks} blocks x {g.warps_per_block} warps, "
             f"{g.smem_bytes} B shared memory per block, {g.warps_per_sm} "
             f"warps per SM")
@@ -871,11 +928,12 @@ def design_edges():
         yield f"one exponent, [1, 2) (8,2560) k={k}", f32(x), k
 
 
-def plan_text(name: str, rows: int, cols: int) -> str:
+def plan_text(name: str, rows: int, cols: int,
+              dtype=torch.float32) -> str:
     """A top-k kernel's launch geometry for an (rows, cols) input."""
     from repro_torch.kernels.topk_select import launch_geometry
 
-    g = launch_geometry(name, rows, cols, torch.device("cuda", 0))
+    g = launch_geometry(name, rows, cols, torch.device("cuda", 0), dtype)
     form = "one row buffer per warp" if g.in_smem else "device-memory form"
     return (f"{name} {g.blocks} blocks x {g.warps_per_block} warps, {form}, "
             f"{g.smem_bytes} B shared memory per block, {g.warps_per_sm} "
@@ -918,13 +976,19 @@ def phase_topk(dev, leaf_shapes) -> list:
         del x, got, want
     if bad:
         fail(f"top-k kernels differ from their plain version on {bad}")
-    for name, fn in fns.items():
+    # a dtype no form takes raises by name on the card (float16 never
+    # reaches a plain version)
+    from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
+
+    half = torch.zeros((8, 64), device=dev, dtype=torch.float16)
+    for name, fn in (*fns.items(), ("fused_memsgd", lambda x, k:
+                                    fused_memsgd_cuda(x, x, 0.1, k))):
         try:
-            fn(torch.zeros((8, 64), device=dev, dtype=torch.bfloat16), 4)
+            fn(half, 4)
         except TypeError as e:
-            print(f"  {name} bf16 on the card raises by name: {e}")
+            print(f"  {name} float16 on the card raises by name: {e}")
         else:
-            fail(f"a bf16 CUDA tensor reached {name}")
+            fail(f"a float16 CUDA tensor reached {name}")
 
     gen = torch.Generator(device=dev)
     times = {arch: leaf_step_times(dev, gen, arch, calls, fns)
@@ -2056,6 +2120,418 @@ def phase_pod_reselect(dev) -> dict:
     return out
 
 
+def bf16_topk_cases(dev):
+    """Yields (label, x, k): bf16 rows on the card at the edges of the
+    top-k kernels' bf16 forms, made from seeds: every float32 design edge
+    rounded to bf16 (bf16's 8 significant bits make ties common), then the
+    bf16 form's own: 8 values to a 16-byte word (a lane owns columns j with
+    (j // 8) % 32 == lane), so a list that overflows at that stride; bf16
+    subnormals; signed-zero rows; k = 32 and 33; k = C; k above the list's
+    capacity (the pairs ordered in idx); C < 32; C % 8 != 0 with C % 4 ==
+    0; rows 2 bytes past alignment; rows of 4; a row wider than shared
+    memory at bf16."""
+    import numpy as np
+
+    rng = np.random.default_rng(51)
+
+    def signs(shape):
+        return np.where(rng.random(shape) < 0.5, -1.0, 1.0)
+
+    def bf(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+            dev).to(BF16)
+
+    for label, x, k in design_edges():
+        yield f"{label}, rounded to bf16", bf(x), k
+    lane = (np.arange(2560) // 8) % 32
+    yield ("lane-stratified at bf16, list overflows (4,2560) k=26",
+           bf(((32 - lane) * 10.0 + rng.random((4, 2560)))
+              * signs((4, 2560))), 26)
+    bits = rng.integers(1, 128, (6, 2560)).astype(np.int16)
+    bits |= ((rng.random((6, 2560)) < 0.5) << 15).astype(np.int16)
+    yield ("bf16 subnormals only (6,2560) k=26",
+           torch.from_numpy(bits).to(dev).view(BF16), 26)
+    z = np.zeros((4, 64))
+    z[:, 1::2] = -0.0
+    yield "all-zero rows, signed zeros (4,64) k=10", bf(z), 10
+    for k in (32, 33):
+        yield f"k={k} (8,1024)", bf(rng.standard_normal((8, 1024))), k
+    yield "k=C (8,300) k=300", bf(rng.standard_normal((8, 300))), 300
+    yield ("k above the list's capacity (4,1024) k=300",
+           bf(rng.standard_normal((4, 1024))), 300)
+    yield ("k=C above the list's capacity (3,600) k=600",
+           bf(rng.standard_normal((3, 600))), 600)
+    yield ("C % 8 != 0, C % 4 == 0 (6,1020) k=26",
+           bf(rng.standard_normal((6, 1020))), 26)
+    flat = bf(rng.standard_normal(8 * 1024 + 1))
+    yield "rows 2 bytes past alignment (8,1024) k=26", flat[1:].view(
+        8, 1024), 26
+    yield "rows of 4 (4096,4) k=1", bf(rng.standard_normal((4096, 4))), 1
+    yield ("wider than shared memory at bf16 (2,130000) k=26",
+           bf(rng.standard_normal((2, 130000))), 26)
+
+
+def bf16_pod_mean(dev, R, C, k_row, seed):
+    """A bf16 pod mean as the two-level sync forms it at bf16 wire values:
+    POD_DATA shards' per-row top-k_row of random rows, their values in
+    bf16, densified and averaged by the sync's own ``_densify_mean``
+    (argmax_onehot's one-hot form): at most POD_DATA * k_row nonzeros a
+    row."""
+    from repro_torch.core.distributed import _densify_mean
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    fn = topk_wrappers()["row_topk_loop"]
+    pairs = []
+    for _ in range(POD_DATA):
+        u = torch.randn((R, C), generator=gen, device=dev)
+        vals, idx = fn(u, k_row)
+        del u
+        pairs.append((vals.to(BF16), idx))
+    gv = torch.cat([v for v, _ in pairs], 1)
+    gi = torch.cat([i for _, i in pairs], 1)
+    del pairs
+    return _densify_mean(torch.zeros((R, C), dtype=BF16, device=dev), 1, gv,
+                         gi, k_row, True)
+
+
+def bf16_fused_cases(dev):
+    """Yields (label, m (bf16), g (float32), eta, k, branches) on the card:
+    the fused kernel's design edges (eta 0 and 0.37, not exact in bf16;
+    ties; +-inf and subnormal rows; k = C; k above 256; a list that
+    overflows; signed-zero rows; spare warps), C % 8 != 0 with C % 4 == 0,
+    the widest row each branch holds at bf16 (the loop branch's only for
+    it), and the pod sync's bucket at k = 10 and 20. Each case runs with g
+    as it is and rounded to bf16."""
+    from repro_torch.kernels.fused_memsgd import MAX_COLS_BY_DTYPE
+
+    gen = torch.Generator(device=dev)
+
+    def randn(shape, seed):
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=dev)
+
+    both = ("loop", "threshold")
+    for label, m, g, eta, k in fused_edges():
+        yield (label, torch.from_numpy(m).to(dev).to(BF16),
+               torch.from_numpy(g).to(dev), eta, k, both)
+    yield ("C % 8 != 0, C % 4 == 0 (6,1020) k=26",
+           randn((6, 1020), 61).to(BF16), randn((6, 1020), 62), 0.37, 26,
+           both)
+    for sel, widest in MAX_COLS_BY_DTYPE[BF16].items():
+        yield (f"widest {sel} row at bf16 (2,{widest}) k=300",
+               randn((2, widest), 63).to(BF16), randn((2, widest), 64),
+               0.37, 300, both if sel == "threshold" else (sel,))
+    for k in (PATH_K, TOPK_K):
+        yield (f"pod sync bucket {POD_SHAPE} k={k}",
+               (randn(POD_SHAPE, 65) * 0.01).to(BF16),
+               randn(POD_SHAPE, 66), POD_ETA, k, both)
+
+
+def phase_bf16_kernels(dev) -> dict:
+    """The three kernels' bf16 forms, each bitwise against its plain
+    version on the card (the top-k kernels on bf16_topk_cases and at the
+    BF16_TOPK_SHAPES; the fused kernel's two branches on bf16_fused_cases,
+    with float32 and with bf16 g, the launches of each bf16 form counted);
+    then each timed with CUDA events at the path's shapes beside its plain
+    version, the library call, the bytes bound and its float32 form on the
+    same values, with the launch geometry; and the bf16 fused sweep (loop
+    against threshold branch over k). Returns the kernels line's numbers
+    of each bf16 kernel, by name."""
+    from repro_torch.kernels.fused_memsgd import fused_memsgd_cuda
+    from repro_torch.kernels.ref import fused_memsgd_ref, row_topk_ref
+    from repro_torch.kernels.topk_select import LAUNCHES
+    from repro_torch.utils.platform import fused_loop_cutover
+
+    fns = topk_wrappers()
+    worst = collections.defaultdict(float)
+    bad, n = [], collections.Counter()
+    for label, x, k in bf16_topk_cases(dev):
+        want = row_topk_ref(x, k)
+        for name, fn in fns.items():
+            before = LAUNCHES[name + "_bf16"]
+            got = fn(x, k)
+            torch.cuda.synchronize()
+            ok = (LAUNCHES[name + "_bf16"] == before + 1
+                  and all(same_bits(a, b) for a, b in zip(got, want)))
+            worst[name + "_bf16"] = max(worst[name + "_bf16"], float(
+                (got[0].float() - want[0].float()).abs().max()))
+            n[name + "_bf16"] += 1
+            if not ok:
+                bad.append(f"{name}_bf16 {label}")
+        del x, want
+    for label, m, g32, eta, k, branches in bf16_fused_cases(dev):
+        for g in (g32, g32.to(BF16)):
+            want = fused_memsgd_ref(m, g, eta, k)
+            for sel in branches:
+                name = "fused_memsgd" + ("_threshold" if sel == "threshold"
+                                         else "") + "_bf16"
+                before = launch_counts()[name]
+                got = fused_memsgd_cuda(m, g, eta, k, sel)
+                torch.cuda.synchronize()
+                ok = (launch_counts()[name] == before + 1
+                      and all(same_bits(a, b) for a, b in zip(got, want)))
+                worst[name] = max(worst[name], max(
+                    float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got[:2], want[:2])))
+                n[name] += 1
+                if not ok:
+                    bad.append(f"{name} {label} g {g.dtype}")
+                del got
+            del want
+        del m, g32, g
+    if bad:
+        fail(f"bf16 kernels differ from their plain versions on {bad}")
+    print(f"bf16 kernels: {dict(n)} cases bitwise equal to the plain "
+          "versions (vals and new_m in bf16), each launch counted under its "
+          "bf16 name")
+    torch.cuda.empty_cache()
+
+    out = {}
+    # the top-k kernels: bf16 against float32 on the same values, in turns
+    for (R, C), k in BF16_TOPK_SHAPES:
+        if (R, C) == POD_SHAPE:
+            x = bf16_pod_mean(dev, R, C, k // POD_DATA, 71)
+            what = f"the pod re-select on a bf16 pod mean (<= {k} nonzeros)"
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(72)
+            x = (torch.randn((R, C), generator=gen, device=dev)
+                 * 0.01).to(BF16)
+            what = "random rows"
+        x32 = x.float()
+        want = row_topk_ref(x, k)
+        for name, fn in fns.items():
+            if not all(same_bits(a, b) for a, b in zip(fn(x, k), want)):
+                fail(f"{name}_bf16 differs from the plain version at "
+                     f"({R}, {C}) k = {k}")
+        del want
+        plain_ms = cuda_ms(lambda: row_topk_ref(x, k), iters=2)
+        library_ms = cuda_ms(lambda: topk_library(x, k), iters=5)
+        byte_ms = (R * C * 2 + R * k * 6) / HBM_BYTES_PER_S * 1e3
+        op_ms = R * C / F32_FLOPS_PER_S * 1e3
+        for name, fn in fns.items():
+            t = collections.defaultdict(list)
+            for form, z in (("bf16", x), ("f32", x32), ("f32", x32),
+                            ("bf16", x)):
+                t[form].append(cuda_ms(lambda: fn(z, k), iters=10,
+                                       warmup=2))
+            ms, ms32 = (statistics.median(t[f]) for f in ("bf16", "f32"))
+            entry = {"ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(byte_ms, op_ms),
+                     "bound_by": "bytes" if byte_ms >= op_ms
+                     else "operations",
+                     "library_ms": library_ms, "f32_ms": ms32,
+                     "shape": [R, C], "k": k}
+            print(f"  {name}_bf16 ({R},{C}) k={k}, {what}: "
+                  f"{' / '.join(f'{v:.4f}' for v in t['bf16'])} ms "
+                  f"({ms / entry['bound_ms']:.3f}x bound), float32 form "
+                  f"{' / '.join(f'{v:.4f}' for v in t['f32'])} ms, plain "
+                  f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+                  f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}); "
+                  f"{plan_text(name, R, C, BF16)}")
+            if (R, C) == POD_SHAPE:
+                out[name + "_bf16"] = entry
+        del x, x32
+        torch.cuda.empty_cache()
+
+    # the fused kernel at qwen3-4b's bucket (bucket_memory_step's launches
+    # over bf16 memory): both branches, float32 and bf16 g, in turns with
+    # the float32 form on the same values
+    R, C = BF16_FUSED_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(73)
+    m = (torch.randn((R, C), generator=gen, device=dev) * 0.01).to(BF16)
+    g32 = torch.randn((R, C), generator=gen, device=dev)
+    m32 = m.float()
+    for g, g_bytes in ((g32, 4), (g32.to(BF16), 2)):
+        print(f"  fused_memsgd bf16 m, {g.dtype} g ({R},{C}): "
+              + "; ".join(fused_plan_text(sel, R, C, BF16, g.dtype)
+                          for sel in ("loop", "threshold")))
+        for k in (PATH_K, TOPK_K):
+            plain_ms = cuda_ms(lambda: fused_memsgd_ref(m, g, POD_ETA, k),
+                               iters=2)
+            library_ms = cuda_ms(lambda: fused_library(m, g, POD_ETA, k),
+                                 iters=3)
+            byte_ms = ((R * C * (2 + g_bytes + 2) + R * k * 6)
+                       / HBM_BYTES_PER_S * 1e3)
+            op_ms = 2 * R * C / F32_FLOPS_PER_S * 1e3
+            bound_ms = max(byte_ms, op_ms)
+            for sel in ("threshold", "loop"):
+                t = collections.defaultdict(list)
+                for form in ("bf16", "f32", "f32", "bf16"):
+                    mm, gg = (m, g) if form == "bf16" else (m32, g32)
+                    t[form].append(cuda_ms(
+                        lambda: fused_memsgd_cuda(mm, gg, POD_ETA, k, sel),
+                        iters=5, warmup=1))
+                ms, ms32 = (statistics.median(t[f]) for f in ("bf16", "f32"))
+                name = "fused_memsgd" + ("_threshold" if sel == "threshold"
+                                         else "") + "_bf16"
+                print(f"  {name}, {g.dtype} g, ({R},{C}) k={k}: "
+                      f"{' / '.join(f'{v:.4f}' for v in t['bf16'])} ms "
+                      f"({ms / bound_ms:.3f}x bound), float32 form "
+                      f"{' / '.join(f'{v:.4f}' for v in t['f32'])} ms, "
+                      f"plain {plain_ms:.4f} ms, library {library_ms:.4f} "
+                      f"ms, bound {bound_ms:.4f} ms")
+                if g is g32 and k == PATH_K:
+                    out[name] = {
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": ("bytes" if byte_ms >= op_ms
+                                     else "operations"),
+                        "library_ms": library_ms, "f32_ms": ms32,
+                        "shape": [R, C], "k": k}
+    # the bf16 fused sweep: loop against threshold branch at the bucket
+    # with float32 g (what bucket_memory_step packs), in turns at each k
+    # (loop, threshold, threshold, loop), upward then downward; each
+    # branch's median, against FUSED_LOOP_CUTOVER_BF16["cuda"]
+    tk = {k: collections.defaultdict(list) for k in BF16_SWEEP_KS}
+    for ks in (BF16_SWEEP_KS, BF16_SWEEP_KS[::-1]):
+        for k in ks:
+            for sel in ("loop", "threshold", "threshold", "loop"):
+                tk[k][sel].append(cuda_ms(
+                    lambda: fused_memsgd_cuda(m, g32, POD_ETA, k, sel),
+                    iters=5, warmup=1))
+    cut = fused_loop_cutover("cuda", BF16)
+    for k, t in tk.items():
+        med = {sel: statistics.median(v) for sel, v in t.items()}
+        win = min(med, key=med.get)
+        gap = abs(med["loop"] / med["threshold"] - 1) * 100
+        print(f"  bf16 fused sweep ({R},{C}) float32 g k={k}: loop "
+              f"{med['loop']:.4f} ms, threshold {med['threshold']:.4f} ms "
+              f"-> {win} by {gap:.2f}%; auto takes "
+              f"{'threshold' if k > cut else 'loop'}")
+    del m, g32, m32, g
+    torch.cuda.empty_cache()
+    for name, entry in out.items():
+        entry["max_abs_err"] = worst[name]
+    return out
+
+
+def phase_bf16_memory(dev) -> dict:
+    """``bucket_memory_step`` over bf16 memory (``init_bucket_memory(plan,
+    dtype=bfloat16)``; the sparse bucket through the fused kernel's bf16
+    form, float32 g) on qwen3-4b's gradient tree at full width, 4 layers:
+    a first step from the zero memory, then from its memory one step with
+    method "threshold" and one with "auto" (the branch the bf16 form's
+    cutover picks at k = 10), each launch count zeroed before and read
+    after (one launch of the expected bf16 branch per sparse bucket). Each
+    sparse bucket's new memory and applied values are held bitwise against
+    the plain version on the card (``fused_memsgd_ref`` on the packed g:
+    its new_m, and its (vals, idx) densified), at the (1154560, 1024)
+    bucket whose launches the kernels line reports; both steps finite and
+    bitwise equal. Then a small
+    input (qwen3-4b's smoke config, float32, its CPU gradients): the step
+    on the card bitwise the CPU's plain version. Returns the launches by
+    method."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import buckets as bk
+    from repro_torch.core.distributed import SyncConfig
+    from repro_torch.data import token_batches
+    from repro_torch.kernels.ops import _resolve_method
+    from repro_torch.kernels.ref import densify_rows_ref, fused_memsgd_ref
+    from repro_torch.launch.train import _grads
+    from repro_torch.models import build_model
+    from repro_torch.utils.platform import fused_loop_cutover
+    from repro_torch.utils.tree import tree_flatten, tree_leaves
+
+    k_for = SyncConfig(ratio=RATIO).k_for
+    model = full_model(ARCH, N_LAYERS)
+    params = model.init(seed=0, device=dev)
+    batch = next(token_batches(model.cfg.vocab_size, BATCH, SEQ, seed=0))
+    grads, _ = _grads(model, params, {k: torch.as_tensor(v, device=dev)
+                                      for k, v in batch.items()})
+    g_tree = tree_flatten(params)[1].unflatten(grads)
+    del params, grads
+    plan = bk.make_plan(model.param_shapes(), cols=1024, dense_below=16_384)
+    sparse = sum(s.kind == "sparse" for s in plan.buckets)
+    auto = _resolve_method("auto", k_for(1024), "cuda", functools.partial(
+        fused_loop_cutover, dtype=BF16))
+    name_of = {"loop": "fused_memsgd_bf16",
+               "threshold": "fused_memsgd_threshold_bf16"}
+    memory = bk.init_bucket_memory(plan, dtype=BF16, device=dev)
+    # the memory the checked steps start from: one step's residual
+    _, memory, _ = bk.bucket_memory_step(plan, memory, g_tree, ETA, k_for,
+                                         method="threshold")
+    # the plain version of each sparse bucket's step: its new memory, and
+    # its (vals, idx) densified as the step applies them
+    g_bufs = bk.pack(plan, g_tree, dtype=torch.float32)
+    plain = {}
+    for b, spec in enumerate(plan.buckets):
+        if spec.kind == "sparse":
+            nm, vals, idx = fused_memsgd_ref(memory[b], g_bufs[b], ETA,
+                                             k_for(spec.cols))
+            plain[b] = (nm, densify_rows_ref(memory[b], vals, idx))
+            del nm, vals, idx
+    del g_bufs
+    torch.cuda.empty_cache()
+    launches, results, bad = {}, {}, []
+    for method, name in (("threshold", name_of["threshold"]),
+                         ("auto", name_of[auto])):
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        applied, new_m, _ = bk.bucket_memory_step(
+            plan, memory, g_tree, ETA, k_for, method=method)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        launches[method] = counts
+        want = {n: 0 for n in counts}
+        want[name] = sparse
+        if counts != want:
+            fail(f"bf16 bucket memory (method {method!r}): launches "
+                 f"{counts}, expected {want}")
+        packed = bk.pack(plan, applied, dtype=BF16)
+        for b, (nm, dense) in plain.items():
+            if not (same_bits(new_m[b], nm) and same_bits(packed[b], dense)):
+                bad.append(f"{method} bucket {plan.buckets[b].shape}")
+        results[method] = tree_leaves(applied) + list(new_m)
+        del applied, new_m, packed
+    if bad:
+        fail(f"bf16 bucket memory: the step differs from the plain version "
+             f"on the card at {bad}")
+    finite = all(bool(torch.isfinite(t).all()) for t in results["auto"])
+    same = all(same_bits(a, b) for a, b in zip(*results.values()))
+    dtypes = sorted({str(t.dtype) for t in results["auto"][-len(
+        plan.buckets):]})
+    print(f"bf16 bucket memory: {ARCH} {N_LAYERS} layers, buckets "
+          f"{[(s.kind, s.shape) for s in plan.buckets]}, k = "
+          f"{k_for(1024)}, from a first step's memory: one fused launch per "
+          f"sparse bucket { {m: c for m, c in launches.items()} } (auto: "
+          f"the {auto} branch), each step's new memory and applied sparse "
+          f"buckets bitwise the plain version's on the card; threshold == "
+          f"auto bitwise {same}, finite {finite}, new memory dtypes "
+          f"{dtypes}")
+    if not (same and finite):
+        fail("bf16 bucket memory: the branches differ or a value is not "
+             "finite")
+    del results, g_tree, memory, plain
+    torch.cuda.empty_cache()
+
+    small = build_model(get_smoke_config(ARCH).replace(
+        compute_dtype="float32"))
+    host = small.init(seed=0, device="cpu")
+    b_np = next(token_batches(small.cfg.vocab_size, 4, 64, seed=1))
+    gh, _ = _grads(small, host, {k: torch.from_numpy(v)
+                                 for k, v in b_np.items()})
+    treedef = tree_flatten(host)[1]
+    splan = bk.make_plan(small.param_shapes(), cols=1024, dense_below=16_384)
+    gen = torch.Generator().manual_seed(74)
+    mem = [torch.randn(s.shape, generator=gen).to(BF16)
+           for s in splan.buckets]
+    outs = {}
+    for d in ("cpu", dev):
+        applied, new_m, _ = bk.bucket_memory_step(
+            splan, [m.to(d) for m in mem],
+            treedef.unflatten([g.to(d) for g in gh]), 0.37, k_for)
+        outs[str(d)] = [t.cpu() for t in tree_leaves(applied) + list(new_m)]
+    if not all(same_bits(a, b) for a, b in zip(*outs.values())):
+        fail("bf16 bucket memory: the card's step differs from the CPU's "
+             "on the small input")
+    print(f"bf16 bucket memory, small input ({ARCH} smoke config, buckets "
+          f"{[(s.kind, s.shape) for s in splan.buckets]}, eta 0.37): the "
+          "card's step bitwise the CPU's plain version")
+    return launches
+
+
 def _rank_fail(msg: str):
     """A pod rank's failure: raised, so that the spawn reports it and ends
     the other ranks."""
@@ -2148,7 +2624,7 @@ def pod_rank_work(rank: int, dev) -> dict:
     quiet = print if rank == 0 else (lambda line: None)
     out = {"rank": rank, "pod": layout.pod, "data": layout.data}
 
-    def run(label, tc, steps, n_calib):
+    def run(label, tc, steps, n_calib, reselect=reselect):
         batches = ShardedBatcher(token_batches(V, BATCH, SEQ, seed=0), dev)
         tel = step_clock(quiet)
         params = model.init(seed=0, device=dev)
@@ -2261,6 +2737,82 @@ def pod_rank_work(rank: int, dev) -> dict:
                    f"{budget} B")
     out["pod_budgeted run"] = rec_b
     del params, memory
+    torch.cuda.empty_cache()
+
+    # the chain at bf16 wire values: the pod mean, its re-select and the
+    # residual in bf16. threshold_onehot (the reference's threshold select
+    # at k_row = 10, above its loop cutover) re-selects the bf16 pod mean
+    # with the bf16 row top-k, "auto" at k_max = POD_DATA * k_row = 20: the
+    # loop; argmax_onehot's argmax loop would take the float32 keys.
+    # Autotuned (the calibration's selections move in float32, as the
+    # reference measures) and refreshed every POD_REFRESH steps
+    sync16 = dataclasses.replace(sync, value_dtype="bfloat16",
+                                 selection="threshold_onehot")
+    tc16 = TrainConfig(eta=POD_ETA, sync=sync16,
+                       pod_refresh=PodRefreshConfig(every=POD_REFRESH))
+    rec16, params, memory, tel16 = run(
+        "bf16 run", tc16, POD_BF16_STEPS,
+        1 + sum(1 for i in range(1, POD_BF16_STEPS) if i % POD_REFRESH == 0),
+        reselect=f"row_topk_{_resolve_method('auto', POD_DATA * k_row, dev)}"
+                 "_bf16")
+    rec16["params_same_on_every_rank"] = all(
+        _same_on_every_rank(p) for p in tree_leaves(params))
+    if not rec16["params_same_on_every_rank"]:
+        _rank_fail("bf16 run: the params differ across the ranks")
+    # two probe syncs on its state at its last pod ks, through the repack
+    # boundary: argmax_onehot (the float32 loop kernel on the pod mean's
+    # float32 keys: at two workers a pod the product by 1/2 is the bf16
+    # pod mean's value, above bf16's subnormals) and topk_scatter (the bf16
+    # threshold kernel, the scatter densify: at two terms a column the
+    # same bits); each launch count zeroed before and read after
+    live16 = tuple((tel16.refresh_schedule or [(0, tel16.initial_pod_ks)])
+                   [-1][1])
+    grads, _ = _grads(model, params, {k: v for k, v in next(iter(
+        ShardedBatcher(token_batches(V, BATCH, SEQ, seed=8), dev))).items()})
+    g_tree = tree_flatten(params)[1].unflatten(grads)
+    del grads
+    n_sparse = sum(s.kind == "sparse" for s in plan.buckets)
+    probes = {}
+    for selection, kernel in (("argmax_onehot", "row_topk_loop"),
+                              ("topk_scatter", "row_topk_threshold_bf16")):
+        cfg16 = dataclasses.replace(sync16, pod_axis="pod", pod_dynamic=True,
+                                    repack=True, selection=selection)
+        level = {"intra": 0, "cross": 0}
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        upd, _, _ = bucketed_sync_gradients(
+            cfg16, plan, memory, g_tree, POD_ETA, layout=layout,
+            pod_ks=live16, level_bytes=level)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        accounted = bucketed_message_bytes(cfg16, plan, by_level=True,
+                                           pod_ks=live16)
+        upd = bk.pack(plan, upd)
+        same = all(_same_on_every_rank(u) for u in upd)
+        want = {name: 0 for name in counts}
+        want[fused_branch(k_row)] = n_sparse
+        want[kernel] = n_sparse
+        probes[selection] = {"level": level, "accounted": accounted,
+                             "launches": counts, "update": upd,
+                             "same_on_every_rank": same}
+        if counts != want:
+            _rank_fail(f"bf16 probe ({selection}): launches {counts}, "
+                       f"expected {want}")
+        if level != {k: accounted[k] for k in level}:
+            _rank_fail(f"bf16 probe ({selection}): realized bytes {level}, "
+                       f"accounted {accounted}")
+        if not same:
+            _rank_fail(f"bf16 probe ({selection}): the update differs across "
+                       "the ranks")
+    both = all(same_bits(a, b) for a, b in zip(
+        probes["argmax_onehot"].pop("update"),
+        probes["topk_scatter"].pop("update")))
+    if not both:
+        _rank_fail("bf16 probe: argmax_onehot and topk_scatter differ")
+    rec16["probes"] = probes
+    rec16["live"] = list(live16)
+    out["bf16 run"] = rec16
+    del params, memory, g_tree
     torch.cuda.empty_cache()
 
     # a small input: rwkv6-3b's smoke config in float32, this rank's
@@ -2399,7 +2951,7 @@ def phase_pod(dev) -> dict:
             (p, d) for p in range(PODS) for d in range(POD_DATA)]:
         fail("pod sync: the ranks do not form the (pod, data) layout")
     launches = {}
-    for run in ("refresh run", "pod_budgeted run"):
+    for run in ("refresh run", "pod_budgeted run", "bf16 run"):
         first = recs[0][run]
         for r in recs[1:]:
             if (r[run]["losses"], r[run]["schedule"]) != (
@@ -2427,6 +2979,17 @@ def phase_pod(dev) -> dict:
           f"{sum(busy):.2f} together ({100 * sum(busy) / wall:.1f}% of the "
           f"slowest rank's wall); rank 0's top kernels "
           f"{recs[0]['profile']['top']}")
+    rec16 = recs[0]["bf16 run"]
+    for sel, p in rec16["probes"].items():
+        print(f"pod sync bf16 probe ({sel}) at live ks {rec16['live']}: "
+              f"realized {p['level']} B/step/worker, accounted at bf16 "
+              f"{p['accounted']}; launches {p['launches']}; the update "
+              "bitwise on every rank")
+        launches[f"bf16 probe, {sel}"] = {
+            f"rank {r['rank']}": r["bf16 run"]["probes"][sel]["launches"]
+            for r in recs}
+    print("pod sync bf16 probes: argmax_onehot and topk_scatter bitwise "
+          "equal (two terms a column at each level)")
     probe = recs[0]["probe"]
     print(f"pod sync probe at live ks {probe['live']}: realized "
           f"{probe['level']} B/step/worker, accounted "
@@ -2450,6 +3013,8 @@ def main() -> None:
     leaf_shapes = {arch: leaf_row_shapes(arch, depth)
                    for arch, depth in DEPTHS.items()}
     kernels = phase_fused(dev) + phase_topk(dev, leaf_shapes)
+    bf16 = phase_bf16_kernels(dev)
+    bf16_memory = phase_bf16_memory(dev)
     phase_cutover(dev)
     phase_single_row(dev)
     pod_launches = phase_pod(dev)
@@ -2463,7 +3028,8 @@ def main() -> None:
             DENSE_STEPS)}
     by_arch[GRIFFIN_ARCH] = phase_griffin(dev, leaf_shapes)
     by_path = {"optimizer modes": phase_opt_modes(dev, leaf_shapes[ARCH]),
-               f"seq {LONG_SEQ}": phase_long(dev), "pod sync": pod_launches}
+               f"seq {LONG_SEQ}": phase_long(dev), "pod sync": pod_launches,
+               "bf16 bucket memory": bf16_memory}
     layer_costs(dev)
     by_arch[RWKV_ARCH] = {
         "bucketed": phase_bucketed(dev, RWKV_ARCH, RWKV_LAYERS, RWKV_SHAPE,
@@ -2485,6 +3051,35 @@ def main() -> None:
     for k in kernels:
         k["launches_from"] = runs.get(k["name"], "per-leaf")
         k["launches"] = by_arch[MOE_ARCH][k["launches_from"]][k["name"]]
+    # the bf16 forms' counts: the pod sync's bf16 run (its re-select, rank
+    # 0), its topk_scatter probe (rank 0) and the bf16 bucket memory's
+    # step with each fused method
+    bf16_runs = {
+        "row_topk_loop_bf16": ("pod sync bf16 run, rank 0",
+                               pod_launches["bf16 run"]["rank 0"]),
+        "row_topk_threshold_bf16": (
+            "pod sync bf16 probe, topk_scatter, rank 0",
+            pod_launches["bf16 probe, topk_scatter"]["rank 0"]),
+        "fused_memsgd_bf16": ("bf16 bucket memory, method auto",
+                              bf16_memory["auto"]),
+        "fused_memsgd_threshold_bf16": (
+            "bf16 bucket memory, method threshold",
+            bf16_memory["threshold"])}
+    for name, e in bf16.items():
+        fused = name.startswith("fused")
+        source, replaces = (
+            ("fused_memsgd.cu", "fused_memsgd.py:61") if fused else
+            ("topk_select.cu", "topk_select.py:"
+             + ("315" if "threshold" in name else "285")))
+        run, counts = bf16_runs[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}", **e, "ok": True,
+            "launches_from": run, "launches": counts[name]})
+    if any(k["launches"] == 0 for k in kernels):
+        fail(f"a kernel of the kernels line was never launched on its path: "
+             f"{[(k['name'], k['launches_from']) for k in kernels]}")
     print(json.dumps({"launches_by_arch": by_arch}))
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": kernels}))

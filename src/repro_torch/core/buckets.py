@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import densify_rows_ref, fused_memsgd_update
-from repro_torch.kernels.ref import eta32
+from repro_torch.kernels.ref import eta_as
 from repro_torch.utils.tree import TreeDef, tree_flatten
 
 DEFAULT_BUCKET_COLS = 1024
@@ -242,7 +242,9 @@ def bucket_memory_step(
     applied_bufs, new_mem = [], []
     for spec, m, g in zip(plan.buckets, memory_bufs, g_bufs):
         if spec.kind == "dense":
-            u = torch.add(m, torch.mul(g, eta32(eta)))
+            # the reference's m + jnp.asarray(eta, m.dtype) * g: eta in m's
+            # dtype, the float32 g promotes u to float32
+            u = torch.add(m, torch.mul(g, eta_as(eta, m.dtype)))
             applied_bufs.append(u)
             new_mem.append(torch.zeros_like(u))
             continue

@@ -53,10 +53,19 @@ on the card, gloo on the CPU; W = 1 included, so the card runs the NCCL
 gather), else one worker whose gather is the identity; the two-level
 chain gathers over the layout's data and pod groups.
 
+The densify takes the reference's form for the selection
+(``_densify_onehot``, its ``_pick_selection``): the one-hot form sums a
+column's pairs in float32 and rounds once to the wire's value dtype, the
+scatter form adds each pair in that dtype; at float32, and at bf16 with
+two terms a column, the two give the same bits. Where the reference's
+pod re-select is its argmax loop, its compiled keys are the pod mean's
+float32 product before the rounding to bf16 (``_pod_mean_select``).
+
 What the port runs: the ``sparse_allgather``, ``hierarchical`` and
-``dense`` strategies, both wires, float32 or bf16 wire values (the
-two-level chain float32 only: its pod re-select at bf16 needs the bf16
-row top-k kernel), any number of workers, and the ``dense``, ``topk`` and
+``dense`` strategies, both wires, float32 or bf16 wire values (flat and
+two-level: the bf16 pod mean is re-selected by the bf16 row top-k
+kernels, or on its float32 keys where the reference's argmax loop keeps
+them), any number of workers, and the ``dense``, ``topk`` and
 ``pod_budgeted`` presets. Every other option raises
 ``NotImplementedError`` naming it: quantization, local steps > 1 and the
 overlap schedule.
@@ -66,6 +75,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import buckets as bk
@@ -73,6 +83,7 @@ from repro_torch.core import encoding as enc
 from repro_torch.kernels import fused_memsgd_update, row_topk
 from repro_torch.kernels.ref import eta32
 from repro_torch.kernels.topk_select import mask_live_k
+from repro_torch.utils.platform import TOPK_LOOP_CUTOVER
 from repro_torch.utils.tree import tree_flatten
 
 STRATEGIES = ("sparse_allgather", "hierarchical", "dense")
@@ -197,10 +208,6 @@ class SyncConfig:
             (self.quant is not None, "quant (QSGD wire quantization)"),
             (self.local_steps > 1, "local_steps > 1"),
             (self.overlap is not None, "overlap (bucket pipeline)"),
-            (self.strategy == "hierarchical" and self.pod_axis is not None
-             and self.value_dtype == "bfloat16",
-             "strategy='hierarchical' at value_dtype='bfloat16' (its pod "
-             "re-select needs the bf16 row top-k kernel)"),
         ]
         for hit, name in unported:
             if hit:
@@ -354,23 +361,110 @@ def _exchange(cfg: "SyncConfig", vals: torch.Tensor, idx: torch.Tensor,
     return _gather_pairs(vals.to(value_dtype), idx, group)
 
 
-def _densify_mean(out: torch.Tensor, col_axis: int, gv: torch.Tensor,
-                  gi: torch.Tensor, k: int) -> torch.Tensor:
-    """The gathered pairs (rows, n*k) scattered along ``col_axis`` of the
-    zero tensor ``out`` (the wire's value dtype), then / n, in place: one
+def _densify_onehot(cfg: "SyncConfig", k_row: int) -> bool:
+    """Whether the reference densifies a leaf's or bucket's pairs by its
+    one-hot einsum (``_row_densify_onehot``: a column's sum in float32,
+    rounded once) rather than its scatter (``_row_scatter``: one add per
+    pair in the value dtype): its ``_pick_selection`` at the level-1
+    ``k_row``, which picks the two-level chain's every densify too."""
+    return cfg.selection == "threshold_onehot" or (
+        cfg.selection == "argmax_onehot" and k_row <= cfg.argmax_k_limit)
+
+
+def _densify_sum(out: torch.Tensor, col_axis: int, gv: torch.Tensor,
+                 gi: torch.Tensor, k: int, onehot: bool) -> int:
+    """The gathered pairs (rows, n*k) summed along ``col_axis`` of the zero
+    tensor ``out`` (the wire's value dtype), in place; returns n. One
     ``scatter_add_`` per worker, in rank order (a row's indices are
-    distinct within one worker, and a live-k pad adds -0.0, so no two
-    adds race)."""
+    distinct within one worker, and a live-k pad adds -0.0, so no two adds
+    race). ``onehot`` sums in float32 and casts once (the reference's
+    one-hot form), else each add rounds to ``out``'s dtype; with two terms
+    a column the two forms give the same bits, so the float32 buffer is
+    taken only for three workers or more."""
     view = out.movedim(col_axis, -1)
+    acc = view
     lead = view.shape[:-1]
     n = gv.shape[1] // k
+    if onehot and out.dtype != torch.float32 and n > 2:
+        acc = torch.zeros(view.shape, dtype=torch.float32, device=out.device)
     for w in range(n):
         part = slice(w * k, (w + 1) * k)
-        view.scatter_add_(-1, gi[:, part].to(torch.int64).reshape(*lead, k),
-                          gv[:, part].reshape(*lead, k))
-    if n > 1:
-        out.div_(n)
-    return out
+        acc.scatter_add_(-1, gi[:, part].to(torch.int64).reshape(*lead, k),
+                         gv[:, part].reshape(*lead, k).to(acc.dtype))
+    if acc is not view:
+        view.copy_(acc)
+    return n
+
+
+def _densify_mean(out: torch.Tensor, col_axis: int, gv: torch.Tensor,
+                  gi: torch.Tensor, k: int, onehot: bool) -> torch.Tensor:
+    """``_densify_sum``, then the mean over the n workers in ``out``'s
+    dtype, in place (the pod mean): at float32 / n; at bf16 the float32
+    sum times float32(1/n), rounded once to bf16, as the reference's
+    compiled divide by a constant (a multiply by its float32 reciprocal;
+    the same bits as / n for n a power of two)."""
+    n = _densify_sum(out, col_axis, gv, gi, k, onehot)
+    if n == 1:
+        return out
+    if out.dtype == torch.float32:
+        return out.div_(n)
+    return out.copy_(out.to(torch.float32).mul_(_reciprocal32(n)))
+
+
+def _densify_update(out: torch.Tensor, col_axis: int, gv: torch.Tensor,
+                    gi: torch.Tensor, k: int, onehot: bool) -> torch.Tensor:
+    """``_densify_sum``, then the mean over the n workers as float32 (an
+    update): at float32 ``out`` / n in place; at bf16 the bf16 sum widened,
+    times float32(1/n), left unrounded. That is the reference's compiled
+    ``(densify(...) / n).astype(float32)``: its divide is a float32
+    multiply by the reciprocal, and the cast that follows drops the
+    rounding to bf16 between them (XLA's excess precision)."""
+    n = _densify_sum(out, col_axis, gv, gi, k, onehot)
+    if out.dtype == torch.float32:
+        return out.div_(n) if n > 1 else out
+    up = out.to(torch.float32)
+    return up.mul_(_reciprocal32(n)) if n > 1 else up
+
+
+def _pod_mean_select(cfg: "SyncConfig", pod_mean: torch.Tensor,
+                     gv: torch.Tensor, gi: torch.Tensor, k_row: int,
+                     k_pod: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pod mean of the gathered pairs into the zero (rows, cols)
+    ``pod_mean`` (the wire's value dtype, ``_densify_mean``) and its
+    re-select at ``k_pod``: (pvals in that dtype, pidx).
+
+    Where the reference's re-select is its argmax loop
+    (``_row_topk_argmax``, by ``_pick_selection`` at the level-1
+    ``k_row``), its compiled keys ``abs(u.astype(float32))`` drop the
+    rounding of ``densify(...) / n`` to bf16: they are the bf16 sum times
+    float32(1/n), unrounded, as in ``_densify_update``. At bf16 the port
+    then selects on that float32 product and rounds the values it took,
+    which are the pod mean's. Its other re-selects (the threshold
+    select's bit keys, the kernel) see the bf16 pod mean."""
+    onehot = _densify_onehot(cfg, k_row)
+    method = _row_topk_method(cfg, k_pod)
+    if pod_mean.dtype == torch.float32 or not _reselect_is_argmax(cfg, k_row):
+        _densify_mean(pod_mean, 1, gv, gi, k_row, onehot)
+        return row_topk(pod_mean, k_pod, method=method)
+    keys = _densify_update(pod_mean, 1, gv, gi, k_row, onehot)
+    pod_mean.copy_(keys)
+    pvals, pidx = row_topk(keys, k_pod, method=method)
+    return pvals.to(pod_mean.dtype), pidx
+
+
+def _reselect_is_argmax(cfg: "SyncConfig", k_row: int) -> bool:
+    """Whether the reference's ``_pick_selection`` at the level-1 ``k_row``
+    gives its argmax loop: ``argmax_onehot`` up to ``argmax_k_limit``,
+    ``threshold_onehot`` up to its loop cutover on the CPU, where the two
+    packages are held against each other."""
+    if cfg.selection == "threshold_onehot":
+        return k_row <= TOPK_LOOP_CUTOVER["cpu"]
+    return cfg.selection == "argmax_onehot" and k_row <= cfg.argmax_k_limit
+
+
+def _reciprocal32(n: int) -> float:
+    """1/n rounded to float32 (exact as a Python float)."""
+    return float(np.float32(1.0 / n))
 
 
 def _flat_update(cfg: "SyncConfig", like: torch.Tensor, col_axis: int,
@@ -379,8 +473,9 @@ def _flat_update(cfg: "SyncConfig", like: torch.Tensor, col_axis: int,
     into a tensor of ``like``'s layout, / W, as float32."""
     gv, gi = _exchange(cfg, vals, idx, like.shape[col_axis])
     out = torch.zeros_like(like, dtype=getattr(torch, cfg.value_dtype))
-    return _densify_mean(out, col_axis, gv, gi, vals.shape[1]).to(
-        torch.float32)
+    k_row = vals.shape[1]
+    return _densify_update(out, col_axis, gv, gi, k_row,
+                           _densify_onehot(cfg, k_row))
 
 
 def _two_level_layout(cfg: "SyncConfig", layout):
@@ -411,15 +506,21 @@ def _two_level_update(cfg: "SyncConfig", layout, memory: torch.Tensor,
     ``memory``'s layout.
 
     The pod mean, its re-select and the residual stay in ``value_dtype``
-    (float32: validate refuses bf16 here) until the final cast. Zeroing
-    the selection is the reference's ``pod_mean - pod_sel`` at every
-    finite entry: x - x is +0.0, and the (-0.0, 0) pads are left out of
-    the zeroing as they are no-ops in the subtraction. ``level_bytes``
-    (a dict) adds this worker's realized bytes per level: the intra-pod
-    message, and the cross-pod message as the repack transport ships it
-    when ``cfg.repack`` (``repack_transport``, inline)."""
+    until the final cast (at bf16 the re-select is the bf16 row top-k,
+    or the float32 one on the reference's argmax keys:
+    ``_pod_mean_select``; ``memory.add_`` widens the residual into the float32 memory, as the
+    reference's ``(u - own) + residual``). Both densifies take the form
+    the level-1 ``k_row`` picks (``_densify_onehot``), as the reference's
+    one ``densify``. Zeroing the selection is the reference's ``pod_mean -
+    pod_sel`` at every finite entry: x - x is +0.0, and the (-0.0, 0) pads
+    are left out of the zeroing as they are no-ops in the subtraction.
+    ``level_bytes`` (a dict) adds this worker's realized bytes per level:
+    the intra-pod message, and the cross-pod message as the repack
+    transport ships it when ``cfg.repack`` (``repack_transport``,
+    inline)."""
     value_dtype = getattr(torch, cfg.value_dtype)
     rows, k_row = vals.shape
+    onehot = _densify_onehot(cfg, k_row)
     cols = memory.shape[col_axis]
     gv, gi = _exchange(cfg, vals, idx, cols, layout.data_group)
     if level_bytes is not None:
@@ -428,10 +529,8 @@ def _two_level_update(cfg: "SyncConfig", layout, memory: torch.Tensor,
     del vals, idx
     pod_mean = torch.zeros((rows, cols), dtype=value_dtype,
                            device=memory.device)
-    _densify_mean(pod_mean, 1, gv, gi, k_row)
+    pvals, pidx = _pod_mean_select(cfg, pod_mean, gv, gi, k_row, k_pod)
     del gv, gi
-    pvals, pidx = row_topk(pod_mean, k_pod,
-                           method=_row_topk_method(cfg, k_pod))
     n_live = k_pod
     if k_live is not None:
         pvals, pidx = mask_live_k(pvals, pidx, k_live)
@@ -460,7 +559,7 @@ def _two_level_update(cfg: "SyncConfig", layout, memory: torch.Tensor,
         av, ai = _gather_pairs(pvals, pidx, layout.pod_group)
     del pvals, pidx
     out = torch.zeros_like(memory, dtype=value_dtype)
-    return _densify_mean(out, col_axis, av, ai, k_pod).to(torch.float32)
+    return _densify_update(out, col_axis, av, ai, k_pod, onehot)
 
 
 def _row_topk_method(cfg: SyncConfig, k_row: int) -> str:

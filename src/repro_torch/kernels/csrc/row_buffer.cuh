@@ -6,8 +6,9 @@
 // calculator.
 //
 // A bulk copy needs 16-byte aligned addresses and a size that is a
-// multiple of 16: the callers take it only for rows that are (C % 4 == 0
-// and the tensor 16-byte aligned), and row buffers start 16-byte aligned.
+// multiple of 16: the callers take it only for rows that are (C a
+// multiple of 4 float32 or 8 bf16 values, and the tensor 16-byte
+// aligned), and row buffers start 16-byte aligned.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,9 +16,11 @@
 
 namespace row_buffer {
 
-// A row buffer's size: the row's bytes rounded up to 16.
+// A row buffer's size: the row's bytes (cols values of T) rounded up to
+// 16.
+template <class T>
 __host__ __device__ __forceinline__ size_t row_stride(int cols) {
-  return (static_cast<size_t>(cols) * sizeof(float) + 15) & ~size_t{15};
+  return (static_cast<size_t>(cols) * sizeof(T) + 15) & ~size_t{15};
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -35,7 +38,7 @@ __device__ __forceinline__ void bar_init(uint64_t* bar) {
 // Lane 0 copies `bytes` from src to dst; bar completes when they landed.
 // The proxy fence orders the warp's earlier reads of dst (made visible by
 // the caller's __syncwarp) before the asynchronous copy overwrites it.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   asm volatile(

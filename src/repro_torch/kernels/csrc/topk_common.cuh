@@ -12,6 +12,12 @@
 // memory), and agree on every result through warp intrinsics. A row
 // pointer may point into shared or device memory.
 //
+// Rows are float32 (T = float) or bf16 (T = bf16, its 16 bits). Every
+// helper orders by the magnitude's float32 bit pattern, as the reference's
+// _mag_bits orders abs(v).astype(float32): a bf16 magnitude widens to
+// float32 exactly, with its low 16 bits zero, so one key and one contract
+// serve both types, and vals keep the row's type.
+//
 // Both kernels' sources use loop_row and threshold_row below, which read
 // the row in two passes and then work on a short candidate list:
 //   1. every lane's largest key; if the row's largest magnitude is 0 the
@@ -35,22 +41,74 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace topk {
 
 constexpr unsigned int kFullMask = 0xffffffffu;
+
+// A bf16 value as its 16 bits (sign, 8 exponent bits, 7 mantissa bits):
+// the top half of the float32 it widens to.
+using bf16 = uint16_t;
 
 // |v| as its float32 bit pattern: monotone in |v| for every non-NaN v, and
 // the same for -0.0 and +0.0.
 __device__ __forceinline__ unsigned int mag_bits(float v) {
   return __float_as_uint(v) & 0x7fffffffu;
 }
+__device__ __forceinline__ unsigned int mag_bits(bf16 v) {
+  return (static_cast<unsigned int>(v) << 16) & 0x7fffffffu;
+}
+
+// Elements of T in one 16-byte load, and the radix digits a magnitude of
+// T needs (bf16 magnitudes have no bits below bit 16: the digits at
+// shifts 23 and 15 fix every bit).
+template <class T>
+constexpr int kVec = 16 / sizeof(T);
+template <class T>
+constexpr int kDigits = sizeof(T) == 4 ? 4 : 2;
+
+// The magnitude bits of the kVec<T> entries of 16-byte word w, in column
+// order (little-endian: a word's low half is the lower column).
+__device__ __forceinline__ void word_mags(uint4 w, const float*,
+                                          unsigned int (&m)[4]) {
+  m[0] = w.x & 0x7fffffffu;
+  m[1] = w.y & 0x7fffffffu;
+  m[2] = w.z & 0x7fffffffu;
+  m[3] = w.w & 0x7fffffffu;
+}
+__device__ __forceinline__ void word_mags(uint4 w, const bf16*,
+                                          unsigned int (&m)[8]) {
+  const unsigned int h[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[2 * i] = (h[i] << 16) & 0x7fffffffu;
+    m[2 * i + 1] = h[i] & 0x7fff0000u;
+  }
+}
 
 // The 64-bit selection key (|v| bits << 32 | ~column): a larger magnitude
 // wins, and on equal magnitude the lower column (larger ~column) wins.
 // Every real key is above 0, since ~column >= 2^31 for column < 2^31.
-__device__ __forceinline__ unsigned long long sel_key(float v, int j) {
-  return (static_cast<unsigned long long>(mag_bits(v)) << 32) |
+__device__ __forceinline__ unsigned long long mag_key(unsigned int mag,
+                                                      int j) {
+  return (static_cast<unsigned long long>(mag) << 32) |
          static_cast<unsigned int>(~j);
+}
+template <class T>
+__device__ __forceinline__ unsigned long long sel_key(T v, int j) {
+  return mag_key(mag_bits(v), j);
+}
+
+// Calls f(t, key) on the keys of the kVec<T> columns of 16-byte word q of
+// row r (16-byte aligned), t = 0, 1, ... in column order.
+template <class T, class F>
+__device__ __forceinline__ void vec_keys(const T* r, int q, F&& f) {
+  unsigned int m[kVec<T>];
+  word_mags(reinterpret_cast<const uint4*>(r)[q], r, m);
+  const int j = q * kVec<T>;
+#pragma unroll
+  for (int t = 0; t < kVec<T>; ++t) f(t, mag_key(m[t], j + t));
 }
 
 // Writes the k selected entries (keys >= kth) in contract order (the
@@ -61,30 +119,55 @@ __device__ __forceinline__ unsigned long long sel_key(float v, int j) {
 // keys (O(k^2) compares) is its slot in `idx`; then `vals` takes the
 // values. `vals` and `idx` are this row's k outputs in device memory,
 // written and re-read only by this warp (ordered by __syncwarp).
-__device__ __forceinline__ void write_selected(const float* x, int cols,
-                                               int k, unsigned long long kth,
-                                               int lane, float* vals,
-                                               int* idx) {
+//
+// A bf16 `vals` slot cannot hold a column, so at bf16 the columns are
+// compacted into `idx` instead and put in contract order there by an
+// odd-even transposition sort on their keys (k phases of disjoint
+// compare-exchanges, also O(k^2)), after which `vals` takes the values.
+template <class T>
+__device__ __forceinline__ void write_selected(const T* x, int cols, int k,
+                                               unsigned long long kth,
+                                               int lane, T* vals, int* idx) {
+  const unsigned int below = (1u << lane) - 1u;
   int filled = 0;
-  for (int base = 0; base < cols && filled < k; base += 32) {
-    const int j = base + lane;
-    const bool sel = j < cols && sel_key(x[j], j) >= kth;
-    const unsigned int m = __ballot_sync(kFullMask, sel);
-    if (sel) {
-      vals[filled + __popc(m & ((1u << lane) - 1u))] = __int_as_float(j);
+  if constexpr (std::is_same<T, float>::value) {
+    for (int base = 0; base < cols && filled < k; base += 32) {
+      const int j = base + lane;
+      const bool sel = j < cols && sel_key(x[j], j) >= kth;
+      const unsigned int m = __ballot_sync(kFullMask, sel);
+      if (sel) vals[filled + __popc(m & below)] = __int_as_float(j);
+      filled += __popc(m);
     }
-    filled += __popc(m);
-  }
-  __syncwarp();
-  for (int i = lane; i < k; i += 32) {
-    const int ji = __float_as_int(vals[i]);
-    const unsigned long long ki = sel_key(x[ji], ji);
-    int rank = 0;
-    for (int t = 0; t < k; ++t) {
-      const int jt = __float_as_int(vals[t]);
-      rank += sel_key(x[jt], jt) > ki;
+    __syncwarp();
+    for (int i = lane; i < k; i += 32) {
+      const int ji = __float_as_int(vals[i]);
+      const unsigned long long ki = sel_key(x[ji], ji);
+      int rank = 0;
+      for (int t = 0; t < k; ++t) {
+        const int jt = __float_as_int(vals[t]);
+        rank += sel_key(x[jt], jt) > ki;
+      }
+      idx[rank] = ji;
     }
-    idx[rank] = ji;
+  } else {
+    for (int base = 0; base < cols && filled < k; base += 32) {
+      const int j = base + lane;
+      const bool sel = j < cols && sel_key(x[j], j) >= kth;
+      const unsigned int m = __ballot_sync(kFullMask, sel);
+      if (sel) idx[filled + __popc(m & below)] = j;
+      filled += __popc(m);
+    }
+    __syncwarp();
+    for (int phase = 0; phase < k; ++phase) {
+      for (int i = (phase & 1) + 2 * lane; i + 1 < k; i += 64) {
+        const int a = idx[i], b = idx[i + 1];
+        if (sel_key(x[b], b) > sel_key(x[a], a)) {
+          idx[i] = b;
+          idx[i + 1] = a;
+        }
+      }
+      __syncwarp();
+    }
   }
   __syncwarp();
   for (int s = lane; s < k; s += 32) vals[s] = x[idx[s]];
@@ -93,10 +176,10 @@ __device__ __forceinline__ void write_selected(const float* x, int cols,
 // ---------------------------------------------------------------------
 // The per-row selects of topk_select.cu. A lane's share of a row is read
 // with 16-byte loads when `vec` (the row pointer 16-byte aligned): the
-// lane owns columns 4q..4q+3 for every q = lane (mod 32) below cols / 4,
-// then column j of the (cols % 4) tail for j = lane (mod 32). Without
-// `vec` it owns every column j = lane (mod 32). Either way the lanes'
-// shares partition the row.
+// lane owns columns nq..nq+n-1 (n = kVec<T>: 4 float32 or 8 bf16) for
+// every q = lane (mod 32) below cols / n, then column j of the (cols % n)
+// tail for j = lane (mod 32). Without `vec` it owns every column j = lane
+// (mod 32). Either way the lanes' shares partition the row.
 
 constexpr int kListCap = 256;   // a warp's candidate list, 64-bit keys
 constexpr int kHistBins = 256;  // a warp's radix histogram, 8-bit digits
@@ -123,58 +206,51 @@ __device__ __forceinline__ int key_column(unsigned long long key) {
   return static_cast<int>(~static_cast<unsigned int>(key));
 }
 
-// Calls f(v, j) on each entry of the lane's share, j increasing.
-template <class F>
-__device__ __forceinline__ void for_lane(const float* r, int cols, bool vec,
+// Calls f(key) on the key of each entry of the lane's share, column
+// increasing.
+template <class T, class F>
+__device__ __forceinline__ void for_lane(const T* r, int cols, bool vec,
                                          int lane, F&& f) {
   int tail = 0;
   if (vec) {
-    const float4* r4 = reinterpret_cast<const float4*>(r);
-    const int n4 = cols >> 2;
-    for (int q = lane; q < n4; q += 32) {
-      const float4 v = r4[q];
-      const int j = q << 2;
-      f(v.x, j);
-      f(v.y, j + 1);
-      f(v.z, j + 2);
-      f(v.w, j + 3);
+    const int nv = cols / kVec<T>;
+    for (int q = lane; q < nv; q += 32) {
+      vec_keys(r, q, [&](int, unsigned long long key) { f(key); });
     }
-    tail = n4 << 2;
+    tail = nv * kVec<T>;
   }
-  for (int j = tail + lane; j < cols; j += 32) f(r[j], j);
+  for (int j = tail + lane; j < cols; j += 32) f(sel_key(r[j], j));
 }
 
 // The lane's largest key (0, below every real key, if its share is
-// empty). Four running maxima, one per float4 component, so that the
-// compares do not wait on each other.
-__device__ __forceinline__ unsigned long long lane_max_key(const float* r,
+// empty). Four running maxima, one per float32 of a 16-byte word, so that
+// the compares do not wait on each other.
+template <class T>
+__device__ __forceinline__ unsigned long long lane_max_key(const T* r,
                                                            int cols, bool vec,
                                                            int lane) {
-  unsigned long long b0 = 0, b1 = 0, b2 = 0, b3 = 0;
+  unsigned long long b[4] = {0, 0, 0, 0};
   int tail = 0;
   if (vec) {
-    const float4* r4 = reinterpret_cast<const float4*>(r);
-    const int n4 = cols >> 2;
-    for (int q = lane; q < n4; q += 32) {
-      const float4 v = r4[q];
-      const int j = q << 2;
-      b0 = max_key(b0, sel_key(v.x, j));
-      b1 = max_key(b1, sel_key(v.y, j + 1));
-      b2 = max_key(b2, sel_key(v.z, j + 2));
-      b3 = max_key(b3, sel_key(v.w, j + 3));
+    const int nv = cols / kVec<T>;
+    for (int q = lane; q < nv; q += 32) {
+      vec_keys(r, q, [&](int t, unsigned long long key) {
+        b[t & 3] = max_key(b[t & 3], key);
+      });
     }
-    tail = n4 << 2;
+    tail = nv * kVec<T>;
   }
   for (int j = tail + lane; j < cols; j += 32) {
-    b0 = max_key(b0, sel_key(r[j], j));
+    b[0] = max_key(b[0], sel_key(r[j], j));
   }
-  return max_key(max_key(b0, b1), max_key(b2, b3));
+  return max_key(max_key(b[0], b[1]), max_key(b[2], b[3]));
 }
 
 // A lower bound on the row's k-th largest key, for k <= 32: the k-th
 // largest of the 32 lanes' largest keys. Those k keys belong to k distinct
 // entries, so at least k keys of the row are >= it. Returns 0 (no bound)
-// when fewer than k lanes hold an entry (a row of fewer than 32 float4s).
+// when fewer than k lanes hold an entry (a row of fewer than 32 16-byte
+// words).
 __device__ __forceinline__ unsigned long long lane_bound(
     unsigned long long mine, int k) {
   if (__popc(__ballot_sync(kFullMask, mine != 0ull)) < k) return 0ull;
@@ -191,58 +267,54 @@ __device__ __forceinline__ unsigned long long lane_bound(
 // Appends the key of every entry for which keep(key) holds to `list`, in
 // COLUMN order (ballot and popc per chunk), storing the first `cap`.
 // Returns how many entries were kept, which may exceed `cap`.
-template <class Keep>
-__device__ __forceinline__ int compact_row(const float* r, int cols,
-                                           bool vec, int lane, Keep&& keep,
+template <class T, class Keep>
+__device__ __forceinline__ int compact_row(const T* r, int cols, bool vec,
+                                           int lane, Keep&& keep,
                                            unsigned long long* list,
                                            int cap) {
+  constexpr int n_vec = kVec<T>;
   const unsigned int below = (1u << lane) - 1u;
   int filled = 0;
   int tail = 0;
   if (vec) {
-    const float4* r4 = reinterpret_cast<const float4*>(r);
-    const int n4 = cols >> 2;
-    for (int q0 = 0; q0 < n4; q0 += 32) {
+    const int nv = cols / n_vec;
+    for (int q0 = 0; q0 < nv; q0 += 32) {
       const int q = q0 + lane;
-      unsigned long long k0 = 0, k1 = 0, k2 = 0, k3 = 0;
-      bool s0 = false, s1 = false, s2 = false, s3 = false;
-      if (q < n4) {
-        const float4 v = r4[q];
-        const int j = q << 2;
-        k0 = sel_key(v.x, j);
-        k1 = sel_key(v.y, j + 1);
-        k2 = sel_key(v.z, j + 2);
-        k3 = sel_key(v.w, j + 3);
-        s0 = keep(k0);
-        s1 = keep(k1);
-        s2 = keep(k2);
-        s3 = keep(k3);
+      unsigned long long key[n_vec];
+      bool s[n_vec];
+      unsigned int n = 0;
+#pragma unroll
+      for (int t = 0; t < n_vec; ++t) {
+        key[t] = 0;
+        s[t] = false;
       }
-      // the lane's count (0-4) as three ballots: its prefix over the
-      // lower lanes places the lane's entries after theirs
-      const unsigned int n = s0 + s1 + s2 + s3;
-      const unsigned int m0 = __ballot_sync(kFullMask, n & 1u);
-      const unsigned int m1 = __ballot_sync(kFullMask, n & 2u);
-      const unsigned int m2 = __ballot_sync(kFullMask, n & 4u);
-      if ((m0 | m1 | m2) == 0u) continue;
-      int at = filled + __popc(m0 & below) + 2 * __popc(m1 & below) +
-               4 * __popc(m2 & below);
-      if (s0) {
-        if (at < cap) list[at] = k0;
-        ++at;
+      if (q < nv) {
+        vec_keys(r, q, [&](int t, unsigned long long kt) {
+          key[t] = kt;
+          s[t] = keep(kt);
+          n += s[t];
+        });
       }
-      if (s1) {
-        if (at < cap) list[at] = k1;
-        ++at;
+      // the lane's count (0 to n_vec) as one ballot per bit: its prefix
+      // over the lower lanes places the lane's entries after theirs
+      int at = filled, total = 0;
+#pragma unroll
+      for (int b = 0; (1 << b) <= n_vec; ++b) {
+        const unsigned int m = __ballot_sync(kFullMask, n & (1u << b));
+        at += (1 << b) * __popc(m & below);
+        total += (1 << b) * __popc(m);
       }
-      if (s2) {
-        if (at < cap) list[at] = k2;
-        ++at;
+      if (total == 0) continue;
+#pragma unroll
+      for (int t = 0; t < n_vec; ++t) {
+        if (s[t]) {
+          if (at < cap) list[at] = key[t];
+          ++at;
+        }
       }
-      if (s3 && at < cap) list[at] = k3;
-      filled += __popc(m0) + 2 * __popc(m1) + 4 * __popc(m2);
+      filled += total;
     }
-    tail = n4 << 2;
+    tail = nv * n_vec;
   }
   for (int base = tail; base < cols; base += 32) {
     const int j = base + lane;
@@ -263,9 +335,9 @@ __device__ __forceinline__ int compact_row(const float* r, int cols,
 
 // Writes columns 0..k-1 with their own (signed zero) values: the answer
 // for a row whose magnitudes are all 0, where every entry ties.
-__device__ __forceinline__ void write_leading(const float* r, int k,
-                                              int lane, float* vals,
-                                              int* idx) {
+template <class T>
+__device__ __forceinline__ void write_leading(const T* r, int k, int lane,
+                                              T* vals, int* idx) {
   for (int i = lane; i < k; i += 32) {
     vals[i] = r[i];
     idx[i] = i;
@@ -274,10 +346,10 @@ __device__ __forceinline__ void write_leading(const float* r, int k,
 
 // Lane i (< 32) holds the key of output slot r0 + i; lanes below n write
 // their pair (the value read back from the row, so it keeps its sign).
-__device__ __forceinline__ void write_slots(const float* r, int r0, int n,
+template <class T>
+__device__ __forceinline__ void write_slots(const T* r, int r0, int n,
                                             unsigned long long mine,
-                                            int lane, float* vals,
-                                            int* idx) {
+                                            int lane, T* vals, int* idx) {
   if (lane < n) {
     const int j = key_column(mine);
     vals[r0 + lane] = r[j];
@@ -335,37 +407,34 @@ __device__ __forceinline__ unsigned long long loop_rounds_list(
 }
 
 // The largest key below `prev` in the lane's share (0 if none): four
-// running maxima, one per float4 component, as lane_max_key.
+// running maxima, as lane_max_key.
+template <class T>
 __device__ __forceinline__ unsigned long long lane_max_below(
-    const float* r, int cols, bool vec, int lane, unsigned long long prev) {
-  unsigned long long b0 = 0, b1 = 0, b2 = 0, b3 = 0;
-  auto take = [prev](unsigned long long& b, unsigned long long key) {
-    if (key < prev && key > b) b = key;
+    const T* r, int cols, bool vec, int lane, unsigned long long prev) {
+  unsigned long long b[4] = {0, 0, 0, 0};
+  auto take = [prev](unsigned long long& bt, unsigned long long key) {
+    if (key < prev && key > bt) bt = key;
   };
   int tail = 0;
   if (vec) {
-    const float4* r4 = reinterpret_cast<const float4*>(r);
-    const int n4 = cols >> 2;
-    for (int q = lane; q < n4; q += 32) {
-      const float4 v = r4[q];
-      const int j = q << 2;
-      take(b0, sel_key(v.x, j));
-      take(b1, sel_key(v.y, j + 1));
-      take(b2, sel_key(v.z, j + 2));
-      take(b3, sel_key(v.w, j + 3));
+    const int nv = cols / kVec<T>;
+    for (int q = lane; q < nv; q += 32) {
+      vec_keys(r, q,
+               [&](int t, unsigned long long key) { take(b[t & 3], key); });
     }
-    tail = n4 << 2;
+    tail = nv * kVec<T>;
   }
-  for (int j = tail + lane; j < cols; j += 32) take(b0, sel_key(r[j], j));
-  return max_key(max_key(b0, b1), max_key(b2, b3));
+  for (int j = tail + lane; j < cols; j += 32) take(b[0], sel_key(r[j], j));
+  return max_key(max_key(b[0], b[1]), max_key(b[2], b[3]));
 }
 
 // Rounds r0 .. r0+kb-1 (kb <= 32) of the loop select over the whole row
 // (a candidate list too long for its buffer), from `prev`, the winner of
 // round r0-1: each round reads the row once. Lane t keeps round r0+t's
 // key; returns the last round's.
+template <class T>
 __device__ __forceinline__ unsigned long long loop_rounds_row(
-    const float* r, int cols, int kb, bool vec, int lane,
+    const T* r, int cols, int kb, bool vec, int lane,
     unsigned long long prev, unsigned long long& mine) {
   for (int t = 0; t < kb; ++t) {
     prev = warp_max_redux(lane_max_below(r, cols, vec, lane, prev));
@@ -376,7 +445,8 @@ __device__ __forceinline__ unsigned long long loop_rounds_row(
 
 // Radix select of the k-th largest magnitude bit pattern: 8-bit digits
 // of the 31 magnitude bits from the top (shifts 23, 15, 7, 0; the last
-// digit's top bit is already fixed by the one before). `prefix` holds the
+// digit's top bit is already fixed by the one before; a bf16 magnitude
+// is fixed after the first two, kDigits). `prefix` holds the
 // digits found, `mask` their bits, `need` how many entries are still to
 // be taken at the prefix, `n_gt` how many lie above it.
 struct Radix {
@@ -474,8 +544,9 @@ __device__ __forceinline__ unsigned long long tie_key_list(
 }
 
 // The same over the row itself, 32 columns at a time in column order.
+template <class T>
 __device__ __forceinline__ unsigned long long tie_key_row(
-    const float* r, int cols, unsigned int tau, int need, int lane) {
+    const T* r, int cols, unsigned int tau, int need, int lane) {
   for (int base = 0; base < cols; base += 32) {
     const int j = base + lane;
     unsigned int m =
@@ -512,10 +583,10 @@ __device__ __forceinline__ void keep_list(unsigned long long* list, int n,
 // Writes the k keys of `list` (k <= kListCap) in contract order: each
 // key's rank among the k (O(k^2) compares of keys in shared memory) is its
 // output slot; the value is read back from the row.
+template <class T>
 __device__ __forceinline__ void write_ranked(const unsigned long long* list,
-                                             int k, const float* r,
-                                             int lane, float* vals,
-                                             int* idx) {
+                                             int k, const T* r, int lane,
+                                             T* vals, int* idx) {
   for (int i = lane; i < k; i += 32) {
     const unsigned long long key = list[i];
     int rank = 0;
@@ -545,9 +616,10 @@ __device__ __forceinline__ bool all_zero(unsigned long long mine) {
 // Returns the last winner, the k-th selected key (the same in every
 // lane), as threshold_row does: the selection is exactly the row's keys
 // >= it. For an all-zero row that is column k-1's key at magnitude 0.
+template <class T>
 __device__ __forceinline__ unsigned long long loop_row(
-    const float* r, int cols, int k, bool vec, int lane,
-    unsigned long long* list, float* vals, int* idx) {
+    const T* r, int cols, int k, bool vec, int lane,
+    unsigned long long* list, T* vals, int* idx) {
   unsigned long long prev = ~0ull;
   for (int r0 = 0; r0 < k; r0 += 32) {
     const int kb = min(32, k - r0);
@@ -583,7 +655,8 @@ __device__ __forceinline__ unsigned long long loop_row(
 // The threshold select of one row into (vals, idx) (k pairs).
 //   pass 1: every lane's largest key; an all-zero row is answered here;
 //   k <= 32: pass 2 fills the candidate list (as loop_row), and the radix
-//     select (four digits), the tie scan and the ordering run on the list;
+//     select (kDigits digits), the tie scan and the ordering run on the
+//     list;
 //   otherwise, or if the list would overflow: the top digit's histogram
 //     over the row, then the entries in its chosen bin compacted to the
 //     list if they fit (else the other digits and the tie scan read the
@@ -593,9 +666,10 @@ __device__ __forceinline__ unsigned long long loop_row(
 // Returns the k-th selected key (the same in every lane): the selection is
 // exactly the row's keys >= it, as loop_row's last winner is. For an
 // all-zero row that is column k-1's key at magnitude 0.
+template <class T>
 __device__ __forceinline__ unsigned long long threshold_row(
-    const float* r, int cols, int k, bool vec, int lane,
-    unsigned long long* list, unsigned int* hist, float* vals, int* idx) {
+    const T* r, int cols, int k, bool vec, int lane,
+    unsigned long long* list, unsigned int* hist, T* vals, int* idx) {
   const unsigned long long mine = lane_max_key(r, cols, vec, lane);
   if (all_zero(mine)) {
     write_leading(r, k, lane, vals, idx);
@@ -615,7 +689,7 @@ __device__ __forceinline__ unsigned long long threshold_row(
         [bound](unsigned long long key) { return key >= bound; }, list,
         kListCap);
     if (n <= kListCap) {
-      for (int d = 0; d < 4; ++d) {
+      for (int d = 0; d < kDigits<T>; ++d) {
         radix_digit(st, digit_shift(d), hist, lane, visit_list);
       }
       const unsigned long long kth =
@@ -627,7 +701,9 @@ __device__ __forceinline__ unsigned long long threshold_row(
     }
   }
   auto visit_row = [&](auto&& f) {
-    for_lane(r, cols, vec, lane, [&](float v, int) { f(mag_bits(v)); });
+    for_lane(r, cols, vec, lane, [&](unsigned long long key) {
+      f(static_cast<unsigned int>(key >> 32));
+    });
   };
   const int top = radix_digit(st, digit_shift(0), hist, lane, visit_row);
   unsigned long long kth;
@@ -640,12 +716,12 @@ __device__ __forceinline__ unsigned long long threshold_row(
                  digit;
         },
         list, kListCap);
-    for (int d = 1; d < 4; ++d) {
+    for (int d = 1; d < kDigits<T>; ++d) {
       radix_digit(st, digit_shift(d), hist, lane, visit_list);
     }
     kth = tie_key_list(list, n, st.prefix, st.need, lane);
   } else {
-    for (int d = 1; d < 4; ++d) {
+    for (int d = 1; d < kDigits<T>; ++d) {
       radix_digit(st, digit_shift(d), hist, lane, visit_row);
     }
     kth = tie_key_row(r, cols, st.prefix, st.need, lane);

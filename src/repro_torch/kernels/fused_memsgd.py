@@ -10,10 +10,14 @@ select of ``row_topk_loop``) and ``"threshold"`` (the radix select of
 
 ``fused_memsgd_cuda`` routes on where its tensors lie: a CPU tensor goes
 to the plain version (``ref.fused_memsgd_ref``) whatever the selection; a
-CUDA tensor launches the selection's kernel, or the wrapper raises.
-``fused_memsgd_cuda.launches`` counts every launch and
-``SELECTION_LAUNCHES`` the launches of each selection (plain integers;
-reset them to 0 to count one run).
+CUDA tensor launches the selection's kernel, or the wrapper raises. The
+kernel takes float32 m and g, or bf16 m with float32 or bf16 g (its bf16
+form, u in bf16 as the reference's ``m + eta.astype(m.dtype) *
+g.astype(m.dtype)``; new_m and vals in bf16); any other pair raises
+``TypeError`` by name. ``fused_memsgd_cuda.launches`` counts every launch
+and ``SELECTION_LAUNCHES`` the launches of each selection per m dtype (the
+bf16 form's under ``<selection>_bf16``; plain integers, reset them to 0 to
+count one run).
 
 The source plans each launch from the card's limits, and
 ``launch_geometry`` reports that plan.
@@ -31,45 +35,59 @@ from repro_torch.kernels.ref import eta32, fused_memsgd_ref
 from repro_torch.kernels.topk_select import Geometry
 
 SELECTIONS = ("loop", "threshold")
+# the (m, g) dtypes the kernel takes
+BF16, F32 = torch.bfloat16, torch.float32
+DTYPE_PAIRS = ((F32, F32), (BF16, F32), (BF16, BF16))
 # a warp's shared memory beside its row buffer: the candidate list (2 KB),
 # the threshold branch's histogram (1 KB), the mbarrier (padded to 16)
 SCRATCH_BYTES = {"loop": 2048 + 16, "threshold": 2048 + 1024 + 16}
 SMEM_PER_BLOCK = 232448    # 227 KB, the most one block may use
 # the widest row one warp's buffer (the row's bytes rounded up to 16) and
-# scratch fit in a block, and the most rows a grid of int32 row indices
-# addresses
-MAX_COLS = {s: (SMEM_PER_BLOCK - SCRATCH_BYTES[s]) // 16 * 16 // 4
-            for s in SELECTIONS}
+# scratch fit in a block, by m's dtype, and the most rows a grid of int32
+# row indices addresses
+MAX_COLS_BY_DTYPE = {
+    dt: {s: (SMEM_PER_BLOCK - SCRATCH_BYTES[s]) // 16 * 16 // size
+         for s in SELECTIONS}
+    for dt, size in ((F32, 4), (BF16, 2))}
+MAX_COLS = MAX_COLS_BY_DTYPE[F32]
 MAX_ROWS = 2**31 - 1
 
-SELECTION_LAUNCHES = {name: 0 for name in SELECTIONS}
+SELECTION_LAUNCHES = {s + suffix: 0 for suffix in ("", "_bf16")
+                      for s in SELECTIONS}
 
 
 @functools.cache
 def _kernels():
     lib = _build.load("fused_memsgd")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    args = [p, p, ctypes.c_float, i, i, i, p, p, p, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fns = {"loop": lib.fused_memsgd_f32,
            "threshold": lib.fused_memsgd_threshold_f32,
+           "loop_bf16": lib.fused_memsgd_bf16,
+           "threshold_bf16": lib.fused_memsgd_threshold_bf16,
            "plan": lib.fused_memsgd_plan}
     for name in SELECTIONS:
-        fns[name].argtypes = args
-    fns["plan"].argtypes = [i, i, i, p]
+        fns[name].argtypes = [p, p, f, i, i, i, p, p, p, p]
+        # the bf16 form takes whether g is bf16 after g
+        fns[name + "_bf16"].argtypes = [p, p, i, f, i, i, i, p, p, p, p]
+    fns["plan"].argtypes = [i, i, i, i, i, p]
     for fn in fns.values():
         fn.restype = ctypes.c_int
     return fns
 
 
 def launch_geometry(selection: str, rows: int, cols: int,
-                    device: torch.device) -> Geometry:
+                    device: torch.device, m_dtype: torch.dtype = F32,
+                    g_dtype: torch.dtype = F32) -> Geometry:
     """The plan with which ``selection``'s branch would launch on an
-    (rows, cols) float32 input on a CUDA ``device``: a warp for every row,
-    always in shared memory (``in_smem``)."""
+    (rows, cols) input, m and g of the given dtypes, on a CUDA
+    ``device``: a warp for every row, always in shared memory
+    (``in_smem``)."""
+    check_dtypes(m_dtype, g_dtype)
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
-        rc = _kernels()["plan"](int(selection == "threshold"), rows, cols,
-                                out)
+        rc = _kernels()["plan"](int(selection == "threshold"),
+                                int(m_dtype == BF16), int(g_dtype == BF16),
+                                rows, cols, out)
     if rc != 0:
         raise RuntimeError(
             f"fused_memsgd ({selection}) launch plan failed: CUDA error {rc}")
@@ -78,16 +96,23 @@ def launch_geometry(selection: str, rows: int, cols: int,
                     smem_bytes=smem, warps_per_sm=per_sm)
 
 
+def check_dtypes(m_dtype: torch.dtype, g_dtype: torch.dtype) -> None:
+    """Raise ``TypeError`` by name unless the kernel has a form for (m, g)
+    of these dtypes: (float32, float32), (bf16, float32) or (bf16,
+    bf16)."""
+    if (m_dtype, g_dtype) not in DTYPE_PAIRS:
+        raise TypeError(
+            f"fused_memsgd kernel takes float32 m and g, or bfloat16 m with "
+            f"float32 or bfloat16 g, got {m_dtype} and {g_dtype}")
+
+
 def check_inputs(m: torch.Tensor, g: torch.Tensor, k: int,
                  selection: str = "loop") -> None:
     """Raise on what the kernel does not take: it reads two contiguous
-    float32 (R, C) tensors on one CUDA device, with 1 <= k <= C <=
-    MAX_COLS[selection]."""
-    if m.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError(
-            f"fused_memsgd kernel takes float32 m and g, got {m.dtype} and "
-            f"{g.dtype} (the bf16 variant is not ported)"
-        )
+    (R, C) tensors of a pair of dtypes it takes (``check_dtypes``) on one
+    CUDA device, with 1 <= k <= C <= ``MAX_COLS_BY_DTYPE[m.dtype]
+    [selection]``."""
+    check_dtypes(m.dtype, g.dtype)
     if m.dim() != 2 or m.shape != g.shape:
         raise ValueError(
             f"fused_memsgd kernel takes two (R, C) tensors of one shape, got "
@@ -100,10 +125,11 @@ def check_inputs(m: torch.Tensor, g: torch.Tensor, k: int,
     C = m.shape[1]
     if not 1 <= k <= C:
         raise ValueError(f"need 1 <= k <= C, got k={k}, C={C}")
-    if C > MAX_COLS[selection]:
+    widest = MAX_COLS_BY_DTYPE[m.dtype][selection]
+    if C > widest:
         raise ValueError(
-            f"C={C} exceeds the {MAX_COLS[selection]} columns one block "
-            f"holds in shared memory with the {selection} selection (u is "
+            f"C={C} exceeds the {widest} columns one block holds in shared "
+            f"memory with the {selection} selection at {m.dtype} (u is "
             "never in device memory, so there is no wider form)"
         )
     if m.shape[0] > MAX_ROWS:
@@ -113,8 +139,9 @@ def check_inputs(m: torch.Tensor, g: torch.Tensor, k: int,
 def fused_memsgd_cuda(m: torch.Tensor, g: torch.Tensor, eta, k: int,
                       selection: str = "loop",
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(m, g): (R, C) float32; eta a number; ``selection`` "loop" or
-    "threshold". Returns (new_m (R, C), vals (R, k), idx (R, k) int32)."""
+    """(m, g): (R, C), float32 and float32 or bf16 and float32 or bf16;
+    eta a number; ``selection`` "loop" or "threshold". Returns (new_m
+    (R, C), vals (R, k), both in m's dtype, idx (R, k) int32)."""
     if selection not in SELECTIONS:
         raise ValueError(
             f"unknown fused_memsgd selection {selection!r}; options: "
@@ -129,21 +156,28 @@ def fused_memsgd_cuda(m: torch.Tensor, g: torch.Tensor, eta, k: int,
     check_inputs(m, g, k, selection)
     R, C = m.shape
     new_m = torch.empty_like(m)
-    vals = torch.empty((R, k), dtype=torch.float32, device=m.device)
+    vals = torch.empty((R, k), dtype=m.dtype, device=m.device)
     idx = torch.empty((R, k), dtype=torch.int32, device=m.device)
     if R == 0:
         return new_m, vals, idx
+    name = selection
+    # the bf16 form takes whether g is bf16 after g; eta goes as float32
+    # and the kernel rounds it to m's dtype
+    g_kind = ()
+    if m.dtype == BF16:
+        name += "_bf16"
+        g_kind = (int(g.dtype == BF16),)
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream(m.device).cuda_stream
-        rc = _kernels()[selection](
-            m.data_ptr(), g.data_ptr(), eta32(eta), R, C, k,
+        rc = _kernels()[name](
+            m.data_ptr(), g.data_ptr(), *g_kind, eta32(eta), R, C, k,
             new_m.data_ptr(), vals.data_ptr(), idx.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(
-            f"fused_memsgd ({selection}) kernel launch failed: CUDA error {rc}")
+            f"fused_memsgd ({name}) kernel launch failed: CUDA error {rc}")
     fused_memsgd_cuda.launches += 1
-    SELECTION_LAUNCHES[selection] += 1
+    SELECTION_LAUNCHES[name] += 1
     return new_m, vals, idx
 
 

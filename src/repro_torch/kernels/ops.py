@@ -14,11 +14,13 @@ index), so all of them return bitwise-identical outputs. On CPU tensors
 every method runs the plain version (``ref.row_topk_ref`` /
 ``ref.fused_memsgd_ref``). ``fused_memsgd_update`` runs the fused
 kernel's branch of the method's name; its "auto" reads the fused kernel's
-own measured cutover (``platform.fused_loop_cutover``), since its two
-branches are not the top-k kernels and were measured on their own.
+own measured cutover for m's dtype (``platform.fused_loop_cutover``),
+since its two branches are not the top-k kernels and were measured on
+their own, at float32 and at bf16.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -72,7 +74,9 @@ def fused_memsgd_update(
     and masks the ragged edge itself, so no padding is needed and the
     value does not change the result.
     """
-    selection = _resolve_method(method, k, m.device, fused_loop_cutover)
+    selection = _resolve_method(
+        method, k, m.device,
+        functools.partial(fused_loop_cutover, dtype=m.dtype))
     if row_block < 1:
         raise ValueError(f"row_block must be >= 1, got {row_block}")
     return fused_memsgd_cuda(m, g, eta, k, selection)

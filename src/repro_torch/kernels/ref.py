@@ -15,9 +15,13 @@ Same contract as the reference's oracles (``repro.kernels.ref``):
       u      = m + eta * g
       vals,i = row_topk(u, k)
       m'     = u with the selected entries zeroed
-  returning (m', vals, idx). ``eta * g`` and the sum are two separate
-  float32 ops, each rounded once, exactly as the CUDA kernel computes them
-  (``__fmul_rn`` then ``__fadd_rn``), so the two agree bit for bit.
+  returning (m', vals, idx), all in m's dtype (idx int32). As the
+  reference's ``m + eta.astype(m.dtype) * g.astype(m.dtype)``, eta is
+  rounded to m's dtype (``eta_as``) and g cast to it; ``eta * g`` and the
+  sum are two separate ops, each computed in float32 and rounded once to
+  m's dtype, exactly as the CUDA kernel computes them (``__fmul_rn`` then
+  ``__fadd_rn``, then ``__float2bfloat16_rn`` after each at bf16), so the
+  two agree bit for bit.
 
 On the CPU these are the path itself; on the card they are what the
 kernels are held against.
@@ -33,6 +37,18 @@ import torch
 def eta32(eta) -> float:
     """eta rounded to float32 once, as the kernel receives it."""
     return float(np.float32(eta))
+
+
+def eta_as(eta, dtype: torch.dtype) -> float:
+    """eta rounded to ``dtype`` as the reference's ``jnp.asarray(eta,
+    dtype)`` rounds it: to float32, then (bf16) to nearest even. The
+    float32 step makes the difference where eta lies within a float32 ulp
+    of a bf16 midpoint (0.370117187499 rounds up to 0.37109375, not down
+    to 0.369140625)."""
+    e = eta32(eta)
+    if dtype == torch.float32:
+        return e
+    return torch.tensor(e, dtype=torch.float32).to(dtype).item()
 
 
 def row_topk_ref(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,7 +76,7 @@ def densify_rows_ref(x_like: torch.Tensor, vals: torch.Tensor,
 
 def fused_memsgd_ref(m: torch.Tensor, g: torch.Tensor, eta, k: int
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    step = torch.mul(g.to(m.dtype), eta32(eta))
+    step = torch.mul(g.to(m.dtype), eta_as(eta, m.dtype))
     u = torch.add(m, step)
     del step
     vals, idxs = row_topk_ref(u, k)

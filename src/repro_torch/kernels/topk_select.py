@@ -7,7 +7,8 @@ Ports of the Pallas TPU kernels of ``src/repro/kernels/topk_select.py``:
   ``row_topk_pallas(selection="loop")``.
 * ``row_topk_threshold_cuda(x, k)`` launches ``row_topk_threshold``
   (the exact k-th largest magnitude by a radix select of four 8-bit
-  digits, then the ties in column order and one ordering step):
+  digits, two at bf16, then the ties in column order and one ordering
+  step):
   ``row_topk_tiled_pallas`` and ``row_topk_pallas(selection="threshold")``.
   Both kernels read a row that fits shared memory from device memory
   once, so the TPU kernels' row and column tiles have no counterpart.
@@ -16,9 +17,11 @@ Both return (vals (R, k) x.dtype, idx (R, k) int32): per row the k entries
 of largest |x|, in decreasing |x|, ties to the lowest column. They route on
 where ``x`` lies: a CPU tensor goes to the plain version
 (``ref.row_topk_ref``); a CUDA tensor launches a kernel, or the wrapper
-raises. The kernels take float32 only (the bf16 variants are not ported).
-``LAUNCHES`` counts each kernel's launches (plain integers; set them to 0
-to count one run).
+raises. Each kernel has a float32 and a bf16 form (``_f32`` / ``_bf16``
+entry points), picked by x's dtype; any other dtype raises ``TypeError``
+by name. ``LAUNCHES`` counts each kernel's launches per dtype (the bf16
+forms' under ``<name>_bf16``; plain integers, set them to 0 to count one
+run).
 
 The kernels are persistent; ``csrc/topk_select.cu`` plans each launch
 (warps per block, the row buffer in shared memory or the device-memory
@@ -42,7 +45,12 @@ from repro_torch.kernels.ref import row_topk_ref
 MAX_COLS = 2**31 - 1
 MAX_ROWS = 2**31 - 1
 
-LAUNCHES = {"row_topk_loop": 0, "row_topk_threshold": 0}
+KERNELS = ("row_topk_loop", "row_topk_threshold")
+# the kernels' forms by dtype: the suffix of their launch counts' names
+# and of their entry points
+DTYPES = {torch.float32: ("", "f32"), torch.bfloat16: ("_bf16", "bf16")}
+LAUNCHES = {name + suffix: 0 for suffix, _ in DTYPES.values()
+            for name in KERNELS}
 
 
 @dataclass(frozen=True)
@@ -64,25 +72,30 @@ def _kernels():
     lib = _build.load("topk_select")
     p, i = ctypes.c_void_p, ctypes.c_int
     fns = {}
-    for name in LAUNCHES:
-        fn = getattr(lib, f"{name}_f32")
-        fn.argtypes = [p, i, i, i, p, p, p]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    lib.row_topk_plan.argtypes = [i, i, i, p]
+    for suffix, entry in DTYPES.values():
+        for name in KERNELS:
+            fn = getattr(lib, f"{name}_{entry}")
+            fn.argtypes = [p, i, i, i, p, p, p]
+            fn.restype = ctypes.c_int
+            fns[name + suffix] = fn
+    lib.row_topk_plan.argtypes = [i, i, i, i, p]
     lib.row_topk_plan.restype = ctypes.c_int
     fns["plan"] = lib.row_topk_plan
     return fns
 
 
-def launch_geometry(name: str, rows: int, cols: int,
-                    device: torch.device) -> Geometry:
-    """The plan with which kernel ``name`` (a key of ``LAUNCHES``) would
-    launch on an (rows, cols) float32 input on a CUDA ``device``."""
+def launch_geometry(name: str, rows: int, cols: int, device: torch.device,
+                    dtype: torch.dtype = torch.float32) -> Geometry:
+    """The plan with which kernel ``name`` (one of ``KERNELS``) would
+    launch on an (rows, cols) input of ``dtype`` on a CUDA ``device``."""
+    if name not in KERNELS:
+        raise ValueError(f"unknown top-k kernel {name!r}; kernels: {KERNELS}")
+    check_dtype(dtype)
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
-        rc = _kernels()["plan"](int(name == "row_topk_threshold"), rows,
-                                cols, out)
+        rc = _kernels()["plan"](int(name == "row_topk_threshold"),
+                                int(dtype == torch.bfloat16), rows, cols,
+                                out)
     if rc != 0:
         raise RuntimeError(f"{name} launch plan failed: CUDA error {rc}")
     w, in_smem, blocks, smem, per_sm = out
@@ -99,13 +112,18 @@ def check_shape(x: torch.Tensor, k: int) -> None:
         raise ValueError(f"need 1 <= k <= C, got k={k}, C={C}")
 
 
-def check_inputs(x: torch.Tensor, k: int) -> None:
-    """Raise on what the kernels do not take: a contiguous float32 (R, C)
-    tensor with 1 <= k <= C <= MAX_COLS and R <= MAX_ROWS."""
-    if x.dtype != torch.float32:
+def check_dtype(dtype: torch.dtype) -> None:
+    """Raise ``TypeError`` by name unless the kernels have a form for
+    ``dtype`` (float32, bf16)."""
+    if dtype not in DTYPES:
         raise TypeError(
-            f"row top-k kernels take float32, got {x.dtype} (the bf16 "
-            "variants are not ported)")
+            f"row top-k kernels take float32 or bfloat16, got {dtype}")
+
+
+def check_inputs(x: torch.Tensor, k: int) -> None:
+    """Raise on what the kernels do not take: a contiguous float32 or bf16
+    (R, C) tensor with 1 <= k <= C <= MAX_COLS and R <= MAX_ROWS."""
+    check_dtype(x.dtype)
     check_shape(x, k)
     if not x.is_contiguous():
         raise ValueError("row top-k kernels take a contiguous tensor")
@@ -128,8 +146,9 @@ def _on_cpu(x: torch.Tensor) -> bool:
 def _launch(name: str, x: torch.Tensor, k: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     check_inputs(x, k)
+    name += DTYPES[x.dtype][0]
     R, C = x.shape
-    vals = torch.empty((R, k), dtype=torch.float32, device=x.device)
+    vals = torch.empty((R, k), dtype=x.dtype, device=x.device)
     idx = torch.empty((R, k), dtype=torch.int32, device=x.device)
     if R == 0:
         return vals, idx

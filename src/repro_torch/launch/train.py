@@ -315,6 +315,9 @@ class PodRatioCalibrator:
     def __init__(self, model, plan, layout, sync: SyncConfig):
         self.model, self.plan, self.layout = model, plan, layout
         self.sync = sync  # k_row and the allocation's target and budget
+        # the shards' selections move as float32 pairs at any wire dtype:
+        # the reference forms its shard measurement in float32
+        self._wire = dataclasses.replace(sync, value_dtype="float32")
 
     def _u(self, params, batch, eta, memory):
         """Per sparse bucket u = eta * g (+ memory) on ``batch``; None for
@@ -352,10 +355,10 @@ class PodRatioCalibrator:
                 if u is not None:
                     k_row = self.sync.k_for(u.shape[1])
                     vals, idx = row_topk(u, k_row)
-                    gv, gi = _exchange(self.sync, vals, idx, u.shape[1],
+                    gv, gi = _exchange(self._wire, vals, idx, u.shape[1],
                                        lay.data_group)
                     del vals, idx
-                    u = (_densify_mean(u.zero_(), 1, gv, gi, k_row)
+                    u = (_densify_mean(u.zero_(), 1, gv, gi, k_row, False)
                          if lay.rank == 0 else None)
                     del gv, gi
                 out.append(u)

@@ -9,9 +9,10 @@ of running somewhere else. ``"cpu"`` runs every kernel's plain version.
 select (a radix select of the k-th largest magnitude over the same
 candidates), per device type; ``kernels.ops.row_topk(method="auto")``
 and the per-leaf sync's ``threshold_onehot`` selection read it.
-``fused_loop_cutover(device)`` is the same for the two branches of the
-fused Mem-SGD kernel, which ``kernels.ops.fused_memsgd_update(method=
-"auto")`` reads (the bucketed paths).
+``fused_loop_cutover(device, dtype)`` is the same for the two branches of
+the fused Mem-SGD kernel, by m's dtype, which ``kernels.ops.
+fused_memsgd_update(method="auto")`` reads (the bucketed paths, and
+``bucket_memory_step`` over bf16 memory).
 """
 from __future__ import annotations
 
@@ -51,6 +52,18 @@ FUSED_LOOP_CUTOVER = {
     "cpu": 4,
     "cuda": 0,
 }
+# The same for the fused kernel's bf16 form (bf16 m, u in bf16). "cuda" is
+# the bf16 fused sweep that chip_smoke.py prints at qwen3-4b's (1154560,
+# 1024) bucket with float32 g (what bucket_memory_step packs; the sweep
+# is made with float32 g only): on an NVIDIA H100 80GB HBM3 at 700 W the
+# loop branch's median is 3.5-11% lower at every swept k up to 26 and the
+# threshold branch's 15-62% lower from k = 32 on (PERF.md), as at the pod
+# sync's (496345, 1024). With bf16 g the threshold branch was 2-4% ahead
+# at k = 10 and 20 (timed, not swept).
+FUSED_LOOP_CUTOVER_BF16 = {
+    "cpu": 4,
+    "cuda": 26,
+}
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -73,9 +86,12 @@ def topk_loop_cutover(device="cpu") -> int:
     return TOPK_LOOP_CUTOVER[dev.type]
 
 
-def fused_loop_cutover(device="cpu") -> int:
-    """The fused kernel's loop/threshold cutover for ``device``'s type."""
+def fused_loop_cutover(device="cpu", dtype=torch.float32) -> int:
+    """The fused kernel's loop/threshold cutover for ``device``'s type and
+    m's ``dtype``."""
     dev = torch.device(device)
-    if dev.type not in FUSED_LOOP_CUTOVER:
+    table = (FUSED_LOOP_CUTOVER_BF16 if dtype == torch.bfloat16
+             else FUSED_LOOP_CUTOVER)
+    if dev.type not in table:
         raise ValueError(f"no fused cutover for device {dev}")
-    return FUSED_LOOP_CUTOVER[dev.type]
+    return table[dev.type]

@@ -20,6 +20,7 @@ from repro_torch.data import token_batches
 from repro_torch.kernels import ops, topk_select
 from repro_torch.kernels.fused_memsgd import (
     MAX_COLS,
+    MAX_COLS_BY_DTYPE,
     SELECTION_LAUNCHES,
     fused_memsgd_cuda,
     launch_geometry,
@@ -41,6 +42,8 @@ from repro_torch.utils.platform import fused_loop_cutover
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
+
+BF16 = torch.bfloat16
 
 
 def _need_card():
@@ -159,18 +162,24 @@ def test_fused_launch_plan_fits_the_card(cols):
     _need_card()
     dev = torch.device("cuda", 0)
     props = torch.cuda.get_device_properties(dev)
-    for selection in ("loop", "threshold"):
-        for rows in (1, 5, 1154560):
-            g = launch_geometry(selection, rows, cols, dev)
-            # never more shared memory than a block may use; the row
-            # always in shared memory; a warp for every row
-            assert 0 < g.smem_bytes <= props.shared_memory_per_block_optin
-            assert g.in_smem
-            assert 1 <= g.warps_per_block <= g.warps_per_sm
-            assert g.warps_per_sm * 32 <= props.max_threads_per_multi_processor
-            assert g.blocks == -(-rows // g.warps_per_block)
+    pairs = ((torch.float32, torch.float32), (BF16, torch.float32),
+             (BF16, BF16))
+    for selection, (m_dt, g_dt), rows in (
+            (s, p, r) for s in ("loop", "threshold") for p in pairs
+            for r in (1, 5, 1154560)):
+        g = launch_geometry(selection, rows, cols, dev, m_dt, g_dt)
+        # never more shared memory than a block may use; the row always
+        # in shared memory; a warp for every row
+        assert 0 < g.smem_bytes <= props.shared_memory_per_block_optin
+        assert g.in_smem
+        assert 1 <= g.warps_per_block <= g.warps_per_sm
+        assert g.warps_per_sm * 32 <= props.max_threads_per_multi_processor
+        assert g.blocks == -(-rows // g.warps_per_block)
     with pytest.raises(RuntimeError, match="launch plan failed"):
         launch_geometry("threshold", 1, MAX_COLS["threshold"] + 4, dev)
+    with pytest.raises(RuntimeError, match="launch plan failed"):
+        launch_geometry("threshold", 1,
+                        MAX_COLS_BY_DTYPE[BF16]["threshold"] + 8, dev, BF16)
 
 
 def test_fused_threshold_branch_refuses_a_row_over_shared_memory():
@@ -201,16 +210,25 @@ def test_fused_update_picks_the_branch_by_the_cutover(shape, k, method,
     before = dict(SELECTION_LAUNCHES)
     got = ops.fused_memsgd_update(m, g, 0.5, k, method=method)
     assert {n: SELECTION_LAUNCHES[n] - before[n] for n in before} == {
-        "loop": int(branch == "loop"), "threshold": int(branch != "loop")}
+        "loop": int(branch == "loop"), "threshold": int(branch != "loop"),
+        "loop_bf16": 0, "threshold_bf16": 0}
     for a, b in zip(got, fused_memsgd_ref(m, g, 0.5, k)):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
-def test_kernel_rejects_bfloat16_on_the_card():
+def test_kernel_takes_bfloat16_and_refuses_other_dtypes_on_the_card():
+    """A bf16 CUDA m goes to the bf16 form (never to the plain version);
+    a pair of dtypes the kernel has no form for raises by name."""
     _need_card()
-    m = torch.zeros((8, 64), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="float32"):
-        fused_memsgd_cuda(m, m, 0.1, 4)
+    m = torch.zeros((8, 64), device="cuda")
+    before = dict(SELECTION_LAUNCHES)
+    for g in (m, m.to(BF16)):
+        fused_memsgd_cuda(m.to(BF16), g, 0.1, 4)
+    assert SELECTION_LAUNCHES["loop_bf16"] - before["loop_bf16"] == 2
+    for a, b in ((m.half(), m.half()), (m, m.to(BF16)),
+                 (m.double(), m.double())):
+        with pytest.raises(TypeError, match=str(b.dtype)):
+            fused_memsgd_cuda(a, b, 0.1, 4)
 
 
 @pytest.mark.parametrize("selection", ["loop", "threshold"])
@@ -341,31 +359,46 @@ def test_topk_kernels_on_unaligned_rows():
     (1, True), (20, True), (1023, True), (2560, True), (20000, True),
     (60000, False), (1 << 20, False)])
 def test_topk_launch_plan_fits_the_card(cols, in_smem):
+    """``in_smem`` is the float32 form's; a bf16 row is half the bytes (at
+    60000 columns it fits)."""
     _need_card()
     dev = torch.device("cuda", 0)
     props = torch.cuda.get_device_properties(dev)
-    for name in LAUNCHES:
-        for rows in (1, 5, 152064):
-            g = topk_select.launch_geometry(name, rows, cols, dev)
-            # never more shared memory than a block may use; a row buffer
-            # per warp when a row fits, else the device-memory form
-            assert 0 < g.smem_bytes <= props.shared_memory_per_block_optin
-            assert g.in_smem == in_smem
-            assert 1 <= g.warps_per_block <= g.warps_per_sm
-            assert g.warps_per_sm * 32 <= props.max_threads_per_multi_processor
-            # every row has its warp, or the SMs hold every block at once
-            per_sm = g.warps_per_sm // g.warps_per_block
-            assert g.blocks == min(-(-rows // g.warps_per_block),
-                                   props.multi_processor_count * per_sm)
+    optin = props.shared_memory_per_block_optin
+    for name, dtype, rows in ((n, d, r) for n in topk_select.KERNELS
+                              for d in (torch.float32, BF16)
+                              for r in (1, 5, 152064)):
+        g = topk_select.launch_geometry(name, rows, cols, dev, dtype)
+        # never more shared memory than a block may use; a row buffer
+        # per warp when a row fits, else the device-memory form
+        row = -(-cols * dtype.itemsize // 16) * 16
+        fits = row + 2048 + 1024 + 16 <= optin
+        assert fits == in_smem or dtype == BF16
+        assert 0 < g.smem_bytes <= optin
+        assert g.in_smem == fits
+        assert 1 <= g.warps_per_block <= g.warps_per_sm
+        assert g.warps_per_sm * 32 <= props.max_threads_per_multi_processor
+        # every row has its warp, or the SMs hold every block at once
+        per_sm = g.warps_per_sm // g.warps_per_block
+        assert g.blocks == min(-(-rows // g.warps_per_block),
+                               props.multi_processor_count * per_sm)
 
 
-def test_topk_kernels_reject_bfloat16_on_the_card():
+def test_topk_kernels_take_bfloat16_and_refuse_float16_on_the_card():
+    """A bf16 CUDA tensor goes to the bf16 forms, counted under their own
+    names; float16 and float64 raise by name."""
     _need_card()
-    x = torch.zeros((8, 64), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="bf16"):
-        row_topk_loop_cuda(x, 4)
-    with pytest.raises(TypeError, match="bf16"):
-        row_topk_threshold_cuda(x, 4)
+    x = torch.zeros((8, 64), device="cuda", dtype=BF16)
+    before = dict(LAUNCHES)
+    for fn in (row_topk_loop_cuda, row_topk_threshold_cuda):
+        vals, _ = fn(x, 4)
+        assert vals.dtype == BF16
+    assert {n: LAUNCHES[n] - before[n] for n in LAUNCHES} == {
+        n: int(n.endswith("_bf16")) for n in LAUNCHES}
+    for dtype in (torch.float16, torch.float64):
+        for fn in (row_topk_loop_cuda, row_topk_threshold_cuda):
+            with pytest.raises(TypeError, match=str(dtype)):
+                fn(x.to(dtype), 4)
 
 
 def _card_against_cpu(bucketed, arch="qwen3-4b", optimizer="memsgd",
@@ -392,6 +425,9 @@ def _card_against_cpu(bucketed, arch="qwen3-4b", optimizer="memsgd",
             {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
         launched[dev] = {"fused_memsgd": fused_memsgd_cuda.launches - fused,
                          **{n: LAUNCHES[n] - topk[n] for n in LAUNCHES}}
+        # a float32 step launches no bf16 form
+        assert not any(launched[dev].pop(n + "_bf16")
+                       for n in topk_select.KERNELS)
         out[dev] = (met["loss"], torch.cat(
             [(a - b).reshape(-1).cpu()
              for a, b in zip(before, tree_leaves(params))]))
@@ -499,6 +535,7 @@ def test_griffin_step_on_the_card_matches_the_cpu(bucketed, monkeypatch):
         monkeypatch.setattr(torch.autograd, "grad", real_grad)
         launched = {"fused_memsgd": fused_memsgd_cuda.launches - fused,
                     **{n: LAUNCHES[n] - topk[n] for n in LAUNCHES}}
+        assert not any(launched.pop(n + "_bf16") for n in topk_select.KERNELS)
         upd = torch.cat([(a - b).reshape(-1).cpu()
                          for a, b in zip(before, tree_leaves(params))])
         return float(met["loss"]), upd, tapped[0], launched
@@ -797,13 +834,14 @@ def _pod_mean_rows(rows, cols, k_row, n_data, seed):
     return out / n_data
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("k_live", [1, 7, 20])
-def test_mask_live_k_and_the_pod_reselect_on_the_card(k_live):
+def test_mask_live_k_and_the_pod_reselect_on_the_card(k_live, dtype):
     """The pod re-select (both top-k kernels at k_max = n_data * k_row on a
-    pod mean, mostly zeros) and ``mask_live_k`` on CUDA tensors, bit for
-    bit their plain versions."""
+    pod mean, mostly zeros; at bf16 the bf16 forms) and ``mask_live_k`` on
+    CUDA tensors, bit for bit their plain versions."""
     _need_card()
-    pm = _pod_mean_rows(300, 1024, 10, 2, seed=k_live)
+    pm = _pod_mean_rows(300, 1024, 10, 2, seed=k_live).to(dtype)
     want = topk_select.mask_live_k(*row_topk_ref(pm, 20), k_live)
     for fn in (row_topk_loop_cuda, row_topk_threshold_cuda):
         got = topk_select.mask_live_k(*fn(pm.cuda(), 20), k_live)
@@ -812,10 +850,20 @@ def test_mask_live_k_and_the_pod_reselect_on_the_card(k_live):
             assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
 
 
-def test_two_level_sync_on_the_card_matches_the_cpu(tmp_path):
+@pytest.mark.parametrize("value_dtype,selection,reselect", [
+    ("float32", "argmax_onehot", "row_topk_loop"),
+    # the reference's argmax loop re-selects on the pod mean's float32 keys
+    ("bfloat16", "argmax_onehot", "row_topk_loop"),
+    # its threshold select on the bf16 pod mean: the bf16 kernel ("auto"
+    # at k_max = 20: the loop)
+    ("bfloat16", "threshold_onehot", "row_topk_loop_bf16"),
+])
+def test_two_level_sync_on_the_card_matches_the_cpu(tmp_path, value_dtype,
+                                                    selection, reselect):
     """The two-level bucketed sync (runtime pod k, packed wire, the repack
     boundary) over a (1, 1) gloo layout on the card: the CPU's update,
-    memory and realized bytes bit for bit, from the same inputs."""
+    memory and realized bytes bit for bit, from the same inputs, with the
+    re-select kernel the selection and the wire's dtype take."""
     _need_card()
     import torch.distributed as dist
 
@@ -830,7 +878,8 @@ def test_two_level_sync_on_the_card_matches_the_cpu(tmp_path):
     plan = bk.make_plan(grads, cols=1024, dense_below=100)
     mem = [torch.from_numpy(rng.standard_normal(s.shape).astype(np.float32))
            for s in plan.buckets]
-    cfg = SyncConfig.preset("pod_budgeted", ratio=0.02, pod_axis="pod")
+    cfg = SyncConfig.preset("pod_budgeted", ratio=0.02, pod_axis="pod",
+                            value_dtype=value_dtype, selection=selection)
     ks = tuple(5 if s.kind == "sparse" else 1 for s in plan.buckets)
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             rank=0, world_size=1)
@@ -839,13 +888,171 @@ def test_two_level_sync_on_the_card_matches_the_cpu(tmp_path):
         out = {}
         for dev in ("cpu", "cuda"):
             level = {"intra": 0, "cross": 0}
+            before = dict(LAUNCHES)
             upd, new_m, nbytes = bucketed_sync_gradients(
                 cfg, plan, [m.to(dev) for m in mem],
                 tree_map(lambda t: t.to(dev), grads), 0.3, layout=layout,
                 pod_ks=ks, level_bytes=level)
             out[dev] = (tree_leaves(upd) + list(new_m), nbytes, level)
+            assert LAUNCHES[reselect] - before[reselect] == int(
+                dev == "cuda")
     finally:
         dist.destroy_process_group()
     assert out["cpu"][1:] == out["cuda"][1:]
     for a, b in zip(out["cpu"][0], out["cuda"][0]):
         assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))
+
+
+def _bf16_rows(kind, seed=31):
+    """(x as a bf16 CPU tensor, k) at the edges of the top-k kernels' bf16
+    forms: 8 values to a 16-byte load, so a lane owns columns j with
+    (j // 8) % 32 == lane and the bulk copy needs C % 8 == 0."""
+    rng = np.random.default_rng(seed)
+    signs = lambda shape: np.where(rng.random(shape) < 0.5, -1.0, 1.0)  # noqa
+    if kind == "lane-stratified at bf16 (list overflows)":
+        lane = (np.arange(2560) // 8) % 32
+        x = ((32 - lane) * 10.0 + rng.random((4, 2560))) * signs((4, 2560))
+        return torch.from_numpy(x.astype(np.float32)).to(BF16), 26
+    if kind == "bf16 subnormals":
+        bits = rng.integers(1, 128, (6, 2560)).astype(np.int16)
+        bits |= ((rng.random((6, 2560)) < 0.5) << 15).astype(np.int16)
+        return torch.from_numpy(bits).view(BF16), 26
+    if kind == "C % 8 != 0, C % 4 == 0":
+        return torch.randn((6, 1020), generator=_gen(seed)).to(BF16), 26
+    if kind == "k > the list's capacity":
+        return torch.randn((4, 1024), generator=_gen(seed)).to(BF16), 300
+    if kind == "k = C > the list's capacity":
+        return torch.randn((3, 600), generator=_gen(seed)).to(BF16), 600
+    if kind == "wider than shared memory at bf16":
+        return torch.randn((2, 130000), generator=_gen(seed)).to(BF16), 26
+    if kind == "rows of 4":
+        return torch.randn((4096, 4), generator=_gen(seed)).to(BF16), 1
+    x, k = edge_rows(kind)  # the float32 edges, rounded to bf16
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(BF16), k
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+BF16_EDGE_KINDS = EDGE_KINDS + [
+    "lane-stratified at bf16 (list overflows)", "bf16 subnormals",
+    "C % 8 != 0, C % 4 == 0", "k > the list's capacity",
+    "k = C > the list's capacity", "wider than shared memory at bf16",
+    "rows of 4"]
+
+
+@pytest.mark.parametrize("selection", ["loop", "threshold"])
+@pytest.mark.parametrize("kind", BF16_EDGE_KINDS)
+def test_bf16_topk_kernels_on_the_design_edges(kind, selection):
+    """Both bf16 forms, bitwise their plain version (vals in bf16), on
+    every float32 edge rounded to bf16 (bf16's 8 significant bits make
+    ties common) and on the bf16 form's own edges."""
+    _need_card()
+    x, k = _bf16_rows(kind)
+    name = f"row_topk_{selection}"
+    wrapper = {"loop": row_topk_loop_cuda,
+               "threshold": row_topk_threshold_cuda}[selection]
+    before = LAUNCHES[name + "_bf16"]
+    got, want = wrapper(x.cuda(), k), row_topk_ref(x, k)
+    assert LAUNCHES[name + "_bf16"] == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+def test_bf16_topk_kernels_on_unaligned_rows(offset):
+    """Rows 2 and 8 bytes past 16-byte alignment: the lanes' plain loads."""
+    _need_card()
+    flat = torch.randn(8 * 1024 + 8, generator=_gen(offset)).to(BF16)
+    x = flat[offset:offset + 8 * 1024].view(8, 1024)
+    want = row_topk_ref(x, 26)
+    for fn in (row_topk_loop_cuda, row_topk_threshold_cuda):
+        for a, b in zip(fn(x.cuda(), 26), want):
+            assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))
+
+
+def _bf16_fused_edges():
+    """(label, m, g (float32 CPU tensors), eta, k) at the edges of the
+    fused kernel's bf16 form: the float32 form's edges (eta 0 and 0.37,
+    not exact in bf16; k > 256 and k = C; ties; +-inf), the paths' k,
+    C % 8 != 0, the widest bf16 row."""
+    rng = np.random.default_rng(41)
+    f32 = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    for label, m, g, eta, k in _fused_edges():
+        yield label, torch.from_numpy(m), torch.from_numpy(g), eta, k
+    for k in (10, 20):
+        yield f"(8,1024) k={k}", f32(8, 1024), f32(8, 1024), 0.37, k
+    yield "C % 8 != 0, C % 4 == 0", f32(6, 1020), f32(6, 1020), 0.37, 26
+    C = MAX_COLS_BY_DTYPE[BF16]["threshold"]
+    yield "widest bf16 row", f32(2, C), f32(2, C), 0.37, 300
+
+
+BF16_FUSED_EDGES = [e[0] for e in _bf16_fused_edges()]
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("selection", ["loop", "threshold"])
+@pytest.mark.parametrize("label", BF16_FUSED_EDGES)
+def test_bf16_fused_kernel_on_its_edges(label, selection, g_dtype):
+    """The bf16 form (bf16 m, float32 or bf16 g), both branches, bitwise
+    the plain version: u rounded in bf16 as the reference's, new_m and
+    vals bf16."""
+    _need_card()
+    _, m, g, eta, k = next(e for e in _bf16_fused_edges() if e[0] == label)
+    m, g = m.to(BF16), g.to(g_dtype)
+    before = dict(SELECTION_LAUNCHES)
+    got = fused_memsgd_cuda(m.cuda(), g.cuda(), eta, k, selection)
+    assert {n: SELECTION_LAUNCHES[n] - before[n] for n in before} == {
+        n: int(n == selection + "_bf16") for n in before}
+    want = fused_memsgd_ref(m, g, eta, k)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, BF16])
+def test_bf16_fused_kernel_on_unaligned_rows(g_dtype):
+    _need_card()
+    m = torch.randn((8, 1024), generator=_gen(3)).to(BF16)
+    g = torch.randn((8, 1024), generator=_gen(4)).to(g_dtype)
+    want = fused_memsgd_ref(m, g, 0.37, 20)
+    # m 2 bytes past 16-byte alignment: the lanes' plain loads and stores
+    mc = torch.empty(8 * 1024 + 1, dtype=BF16, device="cuda")[1:].view(
+        8, 1024).copy_(m)
+    for sel in ("loop", "threshold"):
+        got = fused_memsgd_cuda(mc, g.cuda(), 0.37, 20, sel)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))
+
+
+def test_bf16_bucket_memory_step_on_the_card_matches_the_cpu():
+    """``bucket_memory_step`` over bf16 memory: the sparse bucket through
+    the bf16 fused kernel ("auto" at k = 8: the loop branch, by the bf16
+    form's cutover), the dense bucket promoted to float32, as on the CPU,
+    bit for bit."""
+    _need_card()
+    from repro_torch.core import buckets as bk
+
+    rng = np.random.default_rng(9)
+    tree = {"w": torch.from_numpy(rng.standard_normal((128, 256)).astype(
+        np.float32)), "b": torch.from_numpy(rng.standard_normal(64).astype(
+            np.float32))}
+    plan = bk.make_plan(tree, cols=512)
+    mem = [torch.from_numpy(rng.standard_normal(s.shape).astype(
+        np.float32)).to(BF16) for s in plan.buckets]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = SELECTION_LAUNCHES["loop_bf16"]
+        applied, new_m, _ = bk.bucket_memory_step(
+            plan, [m.to(dev) for m in mem], tree_map(lambda t: t.to(dev),
+                                                     tree), 0.37,
+            lambda c: c // 64)
+        assert SELECTION_LAUNCHES["loop_bf16"] - before == int(
+            dev == "cuda")
+        out[dev] = [t.cpu() for t in tree_leaves(applied) + list(new_m)]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert a.dtype == b.dtype
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))

@@ -28,6 +28,7 @@ from repro_torch.kernels.fused_memsgd import (
 from repro_torch.kernels.ref import densify_rows_ref, row_topk_ref
 from repro_torch.utils.platform import (
     FUSED_LOOP_CUTOVER,
+    FUSED_LOOP_CUTOVER_BF16,
     fused_loop_cutover,
     topk_loop_cutover,
 )
@@ -142,8 +143,14 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     m = torch.zeros((4, 32))
-    with pytest.raises(TypeError, match="float32"):
-        check_inputs(m.to(torch.bfloat16), m.to(torch.bfloat16), 2)
+    bf = m.to(torch.bfloat16)
+    # its float32 and bf16 forms take these (m, g) pairs, and name the rest
+    for a, b in ((m, m), (bf, m), (bf, bf)):
+        check_inputs(a, b, 2)
+    for a, b in ((m.half(), m.half()), (m, bf), (m.double(), m.double()),
+                 (bf, m.half())):
+        with pytest.raises(TypeError, match=str(b.dtype)):
+            check_inputs(a, b, 2)
     with pytest.raises(ValueError, match="one shape"):
         check_inputs(m, torch.zeros((4, 16)), 2)
     with pytest.raises(ValueError, match="k <= C"):
@@ -152,6 +159,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         check_inputs(torch.zeros((32, 4)).T, torch.zeros((32, 4)).T, 2)
     with pytest.raises(ValueError, match="columns"):
         wide = torch.zeros((1, 60000))
+        check_inputs(wide, wide, 2)
+    # a bf16 row is half the bytes: the buffer holds twice the columns
+    wide = torch.zeros((1, 60000), dtype=torch.bfloat16)
+    check_inputs(wide, wide, 2)
+    with pytest.raises(ValueError, match="columns"):
+        wide = torch.zeros((1, 120000), dtype=torch.bfloat16)
         check_inputs(wide, wide, 2)
     meta = torch.zeros((4, 32), device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -212,3 +225,18 @@ def test_fused_auto_reads_its_own_cutover():
         fused_loop_cutover("meta")
     with pytest.raises(ValueError, match="unknown top-k method"):
         ops._resolve_method("radix", 4, cuda, fused_loop_cutover)
+
+
+def test_fused_auto_reads_the_bf16_form_s_cutover():
+    """With bf16 m, "auto" resolves from the bf16 form's own sweep on the
+    card: the loop branch up to k = 26; the CPU's entry is the
+    reference's, as at float32."""
+    cuda = torch.device("cuda")
+    bf16 = torch.bfloat16
+    assert FUSED_LOOP_CUTOVER_BF16 == {"cpu": 4, "cuda": 26}
+    assert fused_loop_cutover(cuda, bf16) == 26
+    assert fused_loop_cutover("cpu", bf16) == fused_loop_cutover("cpu")
+    cut = functools.partial(fused_loop_cutover, dtype=bf16)
+    for k in range(1, 65):
+        assert ops._resolve_method("auto", k, cuda, cut) == (
+            "threshold" if k > 26 else "loop")

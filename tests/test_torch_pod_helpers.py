@@ -339,11 +339,16 @@ def test_leaf_bytes_with_the_pod_level_match_reference(wire):
 
 
 def test_bf16_two_level_raises_by_name():
+    """The two-level chain validates at bf16 wire values (its pod
+    re-select runs the bf16 top-k kernels), with a pod axis or without
+    (the flat chain), as the reference's does; a value dtype the port's
+    wire does not take raises by name."""
     cfg = _hier(value_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="bf16 row top-k"):
-        cfg.validate()
-    # without a pod axis the hierarchical strategy is the flat chain
-    dataclasses.replace(cfg, pod_axis=None).validate()
+    for c in (cfg, dataclasses.replace(cfg, pod_axis=None)):
+        assert c.validate() is c
+        _ref(c).validate()
+    with pytest.raises(ValueError, match="float16"):
+        dataclasses.replace(cfg, value_dtype="float16").validate()
 
 
 def test_meshes_and_refresh_config_are_the_reference_s():

@@ -72,6 +72,12 @@ LIVE = (1, 7)
 CASES = ([("bucketed", mode, wire) for mode in MODES
           for wire in ("unpacked", "packed")]
          + [("per-leaf", "static", wire) for wire in ("unpacked", "packed")])
+# the same chain at bf16 wire values (the pod mean, its re-select and the
+# residual in bf16): the static pod k, the runtime pod k through the
+# repack boundary, and the per-leaf path, on both wires
+BF16_CASES = [(path, mode, wire) for path, mode in (
+    ("bucketed", "static"), ("bucketed", "dynamic"), ("per-leaf", "static"))
+    for wire in ("unpacked", "packed")]
 ARCH = "rwkv6-3b"
 TRAIN = dict(batch=4, seq=32, steps=5, eta=0.3)
 TRAIN_RATIO = 0.02
@@ -89,6 +95,9 @@ CAL_BATCH = dict(batch=4, seq=32, seed=9)
 CAL_CAP, CAL_SPIKES, CAL_SPIKE = 36, 12, 0.03
 CAL_CASES = [(layout, mode, mem) for layout in ((2, 2), (4, 1))
              for mode in ("autotune", "budget") for mem in (False, True)]
+# at bf16 wire values (the shards' selections still move in float32, as
+# the reference measures them; the budget's bytes are bf16 messages')
+BF16_CAL_CASES = [((2, 2), "autotune", True), ((2, 2), "budget", True)]
 MAIN_ARGS = ["--arch", ARCH, "--pods", "2", "--strategy", "hierarchical",
              "--bucketed", "--wire", "packed", "--pod-refresh-every", "2",
              "--platform", "cpu", "--steps", "3", "--batch", "4",
@@ -120,11 +129,11 @@ def _inputs(path, rank):
             for s in plan.buckets], grads
 
 
-def _cfg(path, mode, wire):
+def _cfg(path, mode, wire, vd="float32"):
     from repro_torch.core.distributed import SyncConfig
 
     return SyncConfig(bucketed=path == "bucketed", wire=wire, **BASE,
-                      **MODES[mode])
+                      **MODES[mode], value_dtype=vd)
 
 
 def _train_runs(layout):
@@ -218,17 +227,18 @@ def _cal_caps(plan, mem):
             if mem else None)
 
 
-def _cal_sync(mode, budget, sync_cls):
+def _cal_sync(mode, budget, sync_cls, vd="float32"):
     """The calibration's sync config, the port's or the reference's
     (``sync_cls``): hierarchical on the packed wire, or the
-    ``pod_budgeted`` preset at ``budget``."""
+    ``pod_budgeted`` preset at ``budget``; at ``vd`` wire values."""
     import dataclasses
 
     if mode == "autotune":
         return sync_cls(strategy="hierarchical", ratio=TRAIN_RATIO,
-                        bucketed=True, wire="packed", pod_axis="pod")
+                        bucketed=True, wire="packed", pod_axis="pod",
+                        value_dtype=vd)
     return dataclasses.replace(sync_cls.preset(
-        "pod_budgeted", ratio=TRAIN_RATIO), pod_axis="pod",
+        "pod_budgeted", ratio=TRAIN_RATIO, value_dtype=vd), pod_axis="pod",
         byte_budget=budget)
 
 
@@ -248,12 +258,23 @@ def _calibrations(rank, budget):
     memory = [torch.from_numpy(m) for m in _cal_memory(plan, rank)]
     layouts = {shape: make_layout(*shape) for shape in ((2, 2), (4, 1))}
     out = {}
-    for shape, mode, mem in CAL_CASES:
+    for shape, mode, mem, vd in ([c + ("float32",) for c in CAL_CASES]
+                                 + [c + ("bfloat16",)
+                                    for c in BF16_CAL_CASES]):
         calib = PodRatioCalibrator(model, plan, layouts[shape],
-                                   _cal_sync(mode, budget, SyncConfig))
-        out[shape, mode, mem] = calib.ratios(
+                                   _cal_sync(mode, budget, SyncConfig, vd))
+        key = (shape, mode, mem) + ((vd,) if vd != "float32" else ())
+        out[key] = calib.ratios(
             params, mine, ETA, [m.clone() for m in memory] if mem else None,
             k_caps=_cal_caps(plan, mem))
+    # rank 0's measured buffers at each wire dtype: the sparse buckets'
+    # simulated pod means (every rank takes part in forming them)
+    for vd in ("float32", "bfloat16"):
+        calib = PodRatioCalibrator(model, plan, layouts[2, 2], _cal_sync(
+            "autotune", budget, SyncConfig, vd))
+        bufs = calib.u_bufs(params, mine, ETA, [m.clone() for m in memory])
+        if bufs is not None:
+            out[vd, "pod means"] = [b for b in bufs if b is not None]
     return out
 
 
@@ -280,10 +301,12 @@ def _worker(rank, tmp):
         layout = make_layout(PODS)
         out["layout"] = (layout.pod, layout.data, n_chips(layout),
                          pod_axis_of(layout))
-        for path, mode, wire in CASES:
+        for path, mode, wire, vd in (
+                [c + ("float32",) for c in CASES]
+                + [c + ("bfloat16",) for c in BF16_CASES]):
             mem_np, grads_np = _inputs(path, rank)
             grads = params_from_jax(grads_np)
-            cfg = _cfg(path, mode, wire)
+            cfg = _cfg(path, mode, wire, vd)
             level = {"intra": 0, "cross": 0}
             if path == "bucketed":
                 plan = bk.make_plan(grads, cols=COLS)
@@ -297,7 +320,8 @@ def _worker(rank, tmp):
                     cfg, params_from_jax(mem_np), grads, ETA, COL_AXES,
                     layout=layout)
                 mem = tree_leaves(mem)
-            out[(path, mode, wire)] = (tree_leaves(upd), mem, nbytes, level)
+            key = (path, mode, wire) + ((vd,) if vd != "float32" else ())
+            out[key] = (tree_leaves(upd), mem, nbytes, level)
         out["train"] = _train_runs(layout)
         out["calibration"] = _calibrations(rank, out["train"]["budget"])
         get = configs.get_smoke_config  # float32 compute for the parity
@@ -323,23 +347,23 @@ def runs(tmp_path_factory):
             for r in range(W)]
 
 
-def _rcfg(path, mode, wire="packed"):
+def _rcfg(path, mode, wire="packed", vd="float32"):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
         return RefSyncConfig(bucketed=path == "bucketed", wire=wire,
-                             **BASE, **MODES[mode])
+                             **BASE, **MODES[mode], value_dtype=vd)
 
 
 _REF = {}
 
 
-def _reference(path, mode):
+def _reference(path, mode, vd="float32"):
     """The reference's (2, 2) sync under nested vmap over ("pod", "data")
     on the packed wire (its packed and unpacked wires give the same bits):
     (update leaves, memory leaves), each with leading (pod, data) axes."""
-    if (path, mode) in _REF:
-        return _REF[path, mode]
-    rcfg = _rcfg(path, mode)
+    if (path, mode, vd) in _REF:
+        return _REF[path, mode, vd]
+    rcfg = _rcfg(path, mode, vd=vd)
     mems, grads = zip(*(_inputs(path, r) for r in range(W)))
 
     def stack(*xs):
@@ -362,14 +386,14 @@ def _reference(path, mode):
             return ref_leaf(rcfg, m, g, jnp.float32(ETA), COL_AXES)[:2]
     upd, mem = jax.jit(jax.vmap(jax.vmap(fn, axis_name="data"),
                                 axis_name="pod"))(m, g)
-    _REF[path, mode] = ([np.asarray(x) for x in jax.tree.leaves(upd)],
-                        [np.asarray(x) for x in jax.tree.leaves(mem)])
-    return _REF[path, mode]
+    _REF[path, mode, vd] = ([np.asarray(x) for x in jax.tree.leaves(upd)],
+                            [np.asarray(x) for x in jax.tree.leaves(mem)])
+    return _REF[path, mode, vd]
 
 
-def _ref_bytes(path, mode, wire, **kw):
+def _ref_bytes(path, mode, wire, vd="float32", **kw):
     """The reference's bytes per step of a case (``kw``: by level)."""
-    rcfg = _rcfg(path, mode, wire)
+    rcfg = _rcfg(path, mode, wire, vd)
     _, grads = _inputs(path, 0)
     if path == "per-leaf":
         return ref_leaf_bytes(rcfg, grads, COL_AXES)
@@ -410,6 +434,52 @@ def test_two_level_sync_matches_reference(runs, path, mode, wire):
             live = dict(pod_ks=LIVE) if mode == "dynamic" else {}
             want = _ref_bytes(path, mode, wire, by_level=True, **live)
             assert level == {"intra": want["intra"], "cross": want["cross"]}
+
+
+@pytest.mark.parametrize("path,mode,wire", BF16_CASES)
+def test_two_level_sync_at_bf16_matches_reference(runs, path, mode, wire):
+    """The chain at bf16 wire values against the reference's: a sparse
+    leaf's update (the cross-pod mean densified in bf16) bit for bit; the
+    dense leaves' update (the float32 mean of u) and the memory (u - own
+    plus the bf16 pod residual widened to float32) within the reference's
+    FMA allowance on u (1e-6); the bytes, also by level, equal."""
+    vd = "bfloat16"
+    dense_below = _cfg(path, mode, wire, vd).dense_below
+    r_upd, r_mem = _reference(path, mode, vd)
+    kw = dict(n_data=DATA) if mode == "dynamic" else {}
+    r_nbytes = _ref_bytes(path, mode, wire, vd, **kw)
+    for rank in range(W):
+        p, d = divmod(rank, DATA)
+        upd, mem, nbytes, level = runs[rank][(path, mode, wire, vd)]
+        assert nbytes == r_nbytes
+        assert len(upd) == len(r_upd) and len(mem) == len(r_mem)
+        for a, b in zip(upd, r_upd):
+            a, b = a.numpy(), b[p, d]
+            if a.size >= dense_below:
+                np.testing.assert_array_equal(a, b)
+            else:
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+        for a, b in zip(mem, r_mem):
+            np.testing.assert_allclose(a.numpy(), b[p, d], rtol=0,
+                                       atol=1e-6)
+        if path == "bucketed":
+            live = dict(pod_ks=LIVE) if mode == "dynamic" else {}
+            want = _ref_bytes(path, mode, wire, vd, by_level=True, **live)
+            assert level == {"intra": want["intra"], "cross": want["cross"]}
+
+
+@pytest.mark.parametrize("path,mode", sorted({c[:2] for c in BF16_CASES}))
+def test_bf16_packed_equals_unpacked_and_ranks_agree(runs, path, mode):
+    key = {w: (path, mode, w, "bfloat16") for w in ("packed", "unpacked")}
+    for rank in range(W):
+        p_upd, p_mem, _, _ = runs[rank][key["packed"]]
+        u_upd, u_mem, _, _ = runs[rank][key["unpacked"]]
+        for a, b in zip(p_upd + p_mem, u_upd + u_mem):
+            assert torch.equal(_bits(a), _bits(b))
+    for rank in range(1, W):  # one update on every rank
+        for a, b in zip(runs[0][key["packed"]][0],
+                        runs[rank][key["packed"]][0]):
+            assert torch.equal(_bits(a), _bits(b))
 
 
 @pytest.mark.parametrize("path,mode", sorted({c[:2] for c in CASES}))
@@ -514,7 +584,7 @@ def _ref_model_params():
 
 
 def _ref_ratios(batch, eta, n_data, mode, budget, memory=None,
-                k_caps=None):
+                k_caps=None, vd="float32"):
     """The reference's PodRatioCalibrator and allocation on the global
     ``batch`` (numpy), ``memory``: per bucket, every worker's buffer
     stacked in rank order."""
@@ -524,7 +594,7 @@ def _ref_ratios(batch, eta, n_data, mode, budget, memory=None,
     rmodel, params, plan = _ref_model_params()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        rsync = _cal_sync(mode, budget, RefSyncConfig)
+        rsync = _cal_sync(mode, budget, RefSyncConfig, vd)
     if n_data not in _REF_MODEL:  # one jitted gradient for each n_data
         _REF_MODEL[n_data] = RefCalibrator(rmodel, plan, n_data)
     bufs = _REF_MODEL[n_data].u_bufs(
@@ -555,6 +625,38 @@ def test_pod_ratio_calibrator_matches_reference(runs, layout, mode, mem):
     want = _ref_ratios(_cal_batch(model.cfg.vocab_size), ETA, layout[1],
                        mode, budget, memory, _cal_caps(plan, mem))
     assert got[0] == want
+
+
+@pytest.mark.parametrize("layout,mode,mem", BF16_CAL_CASES)
+def test_pod_ratio_calibrator_at_bf16_matches_reference(runs, layout, mode,
+                                                        mem):
+    """The same at bf16 wire values: the reference measures the shards'
+    selections in float32 whatever the wire's dtype, and sizes the
+    budget's messages in bf16."""
+    budget = runs[0]["train"]["budget"]
+    got = [r["calibration"][layout, mode, mem, "bfloat16"] for r in runs]
+    assert all(g == got[0] for g in got[1:])
+    plan = _small_plan(_small_model())
+    per_rank = [_cal_memory(plan, r) for r in range(W)]
+    memory = [jnp.stack([jnp.asarray(m[b]) for m in per_rank])
+              for b in range(len(plan.buckets))]
+    want = _ref_ratios(_cal_batch(_small_model().cfg.vocab_size), ETA,
+                       layout[1], mode, budget, memory,
+                       _cal_caps(plan, mem), vd="bfloat16")
+    assert got[0] == want
+
+
+def test_pod_mean_proxy_is_float32_at_bf16_wire_values(runs):
+    """The calibration's simulated pod mean (pod 0's shards' top-k_row,
+    moved through the data group, densified on rank 0) does not depend on
+    the wire's dtype: the reference's ``simulate_pod_mean`` measures in
+    float32, and the float32 one is held against it above."""
+    cal = runs[0]["calibration"]
+    f32, bf16 = cal["float32", "pod means"], cal["bfloat16", "pod means"]
+    assert len(f32) == len(bf16) > 0
+    for a, b in zip(f32, bf16):
+        assert a.dtype == b.dtype == torch.float32
+        assert torch.equal(_bits(a), _bits(b))
 
 
 def test_train_initial_pod_ks_match_reference(runs):

@@ -217,8 +217,10 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.zeros((4, 32))
-    with pytest.raises(TypeError, match="bf16"):
-        check_inputs(x.to(torch.bfloat16), 2)
+    check_inputs(x.to(torch.bfloat16), 2)  # the bf16 forms take it
+    for dtype in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(TypeError, match=str(dtype)):
+            check_inputs(x.to(dtype), 2)
     with pytest.raises(ValueError, match="k <= C"):
         check_inputs(x, 33)
     with pytest.raises(ValueError, match="k <= C"):

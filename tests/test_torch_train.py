@@ -410,9 +410,8 @@ def test_cuda_without_a_gpu_raises():
 
 
 @pytest.mark.parametrize("tc,err", [
-    (TrainConfig(sync=SyncConfig(strategy="hierarchical", pod_axis="pod",
-                                 value_dtype="bfloat16")),
-     NotImplementedError),  # the two-level sync at bf16 wire values
+    (TrainConfig(sync=SyncConfig(overlap=True)),
+     NotImplementedError),  # the bucket pipeline (overlap schedule)
     (TrainConfig(sync=SyncConfig(bucketed=True, wire="packed", quant=4)),
      NotImplementedError),  # the quant wire (QSGD levels)
     (TrainConfig(optimizer="sgd", sync=SyncConfig(bucketed=True)),
