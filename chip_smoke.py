@@ -188,7 +188,25 @@ Phases, each of which fails the run with a non-zero exit:
    falling and equal on every rank, its params bitwise equal on every
    rank, and its launches one fused and one re-select launch per sparse
    bucket a step (and on pod 0's ranks one calibration top-k per
-   calibration).
+   calibration). The bucket pipeline there: the ``pod_budgeted`` run
+   again at overlap off and on (its chains' repack stage included),
+   params and memory bitwise the overlap None run's on every rank, each
+   rank's step ms printed; then ``core.selfcheck``'s
+   ``overlap_selfcheck`` and ``repack_selfcheck`` on the (2, 2) layout on
+   the card: every flag True.
+15. The overlap pipeline (after qwen3-4b's per-leaf path): qwen3-4b at
+   full width (4 layers), the per-leaf path (``argmax_onehot``) and the
+   bucketed path, OVERLAP_STEPS steps each at ``SyncConfig.overlap``
+   None, False and True from one cloned init, each run's launches zeroed
+   before and read after: params and memory bitwise equal across the
+   three; each mode's step ms (drain clock) and device busy time (a
+   2-step profile after the checked run).
+16. The host pipeline (after phase 8): ``core.pipeline.run_host_pipeline``
+   over ``EmulatedLink``, 8 buckets of (64, 2048): encode ``row_topk`` at
+   k = 64 (its kernel first held bitwise against the plain version and
+   timed) + the packed encode, decode + densify, the link's latency the
+   measured encode + decode time; depth 1 against depth 2, outputs
+   bitwise equal, wall ms of each (3 rounds in turns), 8 launches a run.
 
 Phase 3 runs the kernels at every architecture's shapes: the fused
 kernel at each bucket (qwen3-4b's, rwkv6-3b's, the two MoE configs',
@@ -213,6 +231,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -337,6 +356,22 @@ BF16_SWEEP_KS = (1, 2, 4, 8, 10, 12, 16, 20, 26, 32, 33, 64)
 # threshold_onehot: its re-select is the bf16 row top-k on the bf16 pod
 # mean; autotuned and refreshed every POD_REFRESH steps)
 POD_BF16_STEPS = 3
+# the overlap pipeline (core.pipeline): qwen3-4b's per-leaf and bucketed
+# paths at SyncConfig.overlap None, False and True, OVERLAP_STEPS steps
+# each from one cloned init (the paths' own STEPS: at eta 0.5 the
+# bucketed run's loss rises at a fifth step, 11.86 -> 13.14, which
+# run_path's falling-loss check refuses), then OVERLAP_PROFILE profiled
+# steps; the pod phase's pod_budgeted run (repack on) at overlap off and
+# on
+OVERLAP_MODES = (None, False, True)
+OVERLAP_STEPS, OVERLAP_PROFILE = STEPS, 2
+# the host pipeline over an emulated link (the reference's overlap
+# headline, benchmarks/run.py:1252-1311): HOST_BUCKETS buckets of
+# HOST_SHAPE, each encoded (row_topk at HOST_K, the packed wire),
+# shipped over core.pipeline.EmulatedLink at the measured encode + decode
+# time, decoded (the densify); depth 1 against depth 2, HOST_ROUNDS timed
+# rounds each, in turns
+HOST_BUCKETS, HOST_SHAPE, HOST_K, HOST_ROUNDS = 8, (64, 2048), 64, 3
 # the per-leaf rows narrower than this are timed on their own
 NARROW_C = 1024
 KERNEL_SOURCES = ("fused_memsgd", "topk_select")
@@ -1148,9 +1183,10 @@ def step_clock(printer=print):
 
 
 def run_path(label, model, tc, dev, expect: dict, steps: int = STEPS,
-             batch: int = BATCH, seq: int = SEQ):
+             batch: int = BATCH, seq: int = SEQ, params=None):
     """One path's run through ``train()`` for ``steps`` steps of batch x
-    seq tokens from the seeded init: every launch count zeroed just
+    seq tokens from the seeded init (or ``params``, updated in place):
+    every launch count zeroed just
     before, read just after, and checked against ``expect`` (kernel ->
     launches; every other kernel 0). Fails unless the losses are finite
     from near ln V, the last below the first, and every parameter moved
@@ -1160,7 +1196,8 @@ def run_path(label, model, tc, dev, expect: dict, steps: int = STEPS,
     from repro_torch.utils.tree import tree_leaves
 
     cfg = model.cfg
-    params = model.init(seed=0, device=dev)
+    if params is None:
+        params = model.init(seed=0, device=dev)
     before = [p.clone() for p in tree_leaves(params)]
     batches = DeviceBatcher(
         token_batches(cfg.vocab_size, batch, seq, seed=0), dev)
@@ -1417,6 +1454,157 @@ def phase_leaf(dev, calls, arch=ARCH, n_layers=N_LAYERS,
     return launches
 
 
+def phase_overlap(dev, calls) -> dict:
+    """The overlap pipeline on qwen3-4b (4 layers, full width): the
+    per-leaf path (``argmax_onehot``; ``calls``: its per-leaf (rows, C, k)
+    calls) and the bucketed path, OVERLAP_STEPS steps each at
+    ``SyncConfig.overlap`` None, False and True from one cloned init, each
+    through ``run_path`` (launch counts zeroed before, read after, the
+    losses checked). The three modes' params and memory must be bitwise
+    equal; each mode's step ms (drain clock) and its device busy time
+    (OVERLAP_PROFILE profiled steps after the checked run). Returns each
+    run's launches."""
+    from repro_torch.core.distributed import SyncConfig
+    from repro_torch.launch.train import TrainConfig
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    model = full_model()
+    init = model.init(seed=0, device=dev)
+    paths = {"per-leaf": (SyncConfig(ratio=RATIO), {
+                 name: OVERLAP_STEPS * n for name, n in
+                 selection_launches("argmax_onehot", calls).items()}),
+             "bucketed": (SyncConfig(ratio=RATIO, bucketed=True), {
+                 fused_branch(round(RATIO * PATH_SHAPE[1])): OVERLAP_STEPS})}
+    launches, summary = {}, {}
+    for path, (sync, expect) in paths.items():
+        first = None
+        for ov in OVERLAP_MODES:
+            tc = TrainConfig(optimizer="memsgd", eta=ETA,
+                             sync=dataclasses.replace(sync, overlap=ov))
+            label = f"{ARCH} {path} path, overlap={ov}"
+            losses, counts, params, memory, batches = run_path(
+                label, model, tc, dev, expect, OVERLAP_STEPS,
+                params=tree_map(torch.clone, init))
+            launches[label] = counts
+            # the bucketed path's memory is a tuple of buffers
+            state = tree_leaves(params) + (
+                list(memory) if isinstance(memory, tuple)
+                else tree_leaves(memory))
+            if first is None:
+                # kept for the comparison; profiled once the others are
+                first = (losses, state, params, memory, batches, tc)
+                continue
+            if losses != first[0] or not all(
+                    same_bits(a, b) for a, b in zip(first[1], state)):
+                fail(f"{label}: params or memory differ from overlap=None")
+            summary[label] = profile_steps(model, tc, params, memory,
+                                           batches, dev, OVERLAP_PROFILE,
+                                           count=OVERLAP_STEPS)
+            del params, memory, batches, state
+            torch.cuda.empty_cache()
+        losses, _, params, memory, batches, tc = first
+        summary[f"{ARCH} {path} path, overlap=None"] = profile_steps(
+            model, tc, params, memory, batches, dev, OVERLAP_PROFILE,
+            count=OVERLAP_STEPS)
+        print(f"{ARCH} {path} path: overlap None, False and True bitwise "
+              f"equal (params and memory after {OVERLAP_STEPS} steps)")
+        del first, params, memory, batches
+        torch.cuda.empty_cache()
+    for label, (wall, busy) in summary.items():
+        print(f"overlap profile: {label}: wall {wall:.2f} ms/step, device "
+              f"busy {busy:.2f} ms/step")
+    del init
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_host_pipeline(dev) -> dict:
+    """The host pipeline over ``pipeline.EmulatedLink``: HOST_BUCKETS
+    buckets of HOST_SHAPE on the card; encode = ``row_topk`` at HOST_K
+    (its "auto" kernel, held bitwise against the plain version and timed
+    first) + the packed encode, decode = the decode + densify, each
+    synchronised; the link's latency the measured encode + decode time
+    (comm ~= compute, the regime the double buffer targets). Depth 1
+    against depth 2 (``run_host_pipeline``), the outputs bitwise equal,
+    HOST_ROUNDS timed rounds each in turns after a warm one; launch
+    counts zeroed before each run and read after. Returns the kernel's
+    numbers with its launches a run."""
+    from repro_torch.core import encoding as enc
+    from repro_torch.core.pipeline import (COMM, COMPUTE, EmulatedLink,
+                                           run_host_pipeline)
+    from repro_torch.kernels import row_topk
+    from repro_torch.kernels.ops import _resolve_method
+
+    R, C = HOST_SHAPE
+    wspec = enc.WireSpec(R, C, HOST_K)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(61)
+    bufs = [torch.randn(HOST_SHAPE, generator=gen, device=dev)
+            for _ in range(HOST_BUCKETS)]
+    kernel = f"row_topk_{_resolve_method('auto', HOST_K, dev)}"
+    held = held_topk(bufs[0], HOST_K, "host pipeline's select")
+
+    def encode(u):
+        out = enc.encode(wspec, *row_topk(u, HOST_K))
+        torch.cuda.synchronize()
+        return out
+
+    def decode_apply(buf):
+        gv, gi = enc.decode(wspec, buf)
+        out = torch.zeros(HOST_SHAPE, device=dev).scatter_add_(
+            1, gi.to(torch.int64), gv)
+        torch.cuda.synchronize()
+        return out
+
+    def per_call(fn, x, n=5):
+        fn(x)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(x)
+        return (time.perf_counter() - t0) / n
+
+    wire0 = encode(bufs[0])
+    t_enc, t_dec = per_call(encode, bufs[0]), per_call(decode_apply, wire0)
+    latency = t_enc + t_dec
+    kinds = [(COMPUTE, COMM, COMPUTE)] * HOST_BUCKETS
+
+    def run(depth):
+        link = EmulatedLink(latency_s=latency)
+        stages = [[encode, lambda w: link.transfer(w, wspec.nbytes),
+                   decode_apply]] * HOST_BUCKETS
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        outs = run_host_pipeline(list(bufs), stages, kinds, depth)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        want = {name: 0 for name in counts}
+        want[kernel] = HOST_BUCKETS
+        if counts != want:
+            fail(f"host pipeline at depth {depth}: launches {counts}, "
+                 f"expected {want}")
+        return outs, ms
+
+    seq, _ = run(1)
+    ovl, _ = run(2)
+    if not all(same_bits(a, b) for a, b in zip(seq, ovl)):
+        fail("host pipeline: depth 2's outputs differ from depth 1's")
+    times = {1: [], 2: []}
+    for r in range(HOST_ROUNDS):
+        for depth in ((1, 2) if r % 2 == 0 else (2, 1)):
+            times[depth].append(run(depth)[1])
+    best = {d: min(t) for d, t in times.items()}
+    print(f"host pipeline: {HOST_BUCKETS} buckets of {HOST_SHAPE}, k = "
+          f"{HOST_K} ({kernel}, {HOST_BUCKETS} launches a run), "
+          f"{wspec.nbytes} B a message; encode {t_enc * 1e3:.3f} ms + "
+          f"decode {t_dec * 1e3:.3f} ms = the link's latency; wall ms "
+          f"depth 1 {[round(t, 3) for t in times[1]]}, depth 2 "
+          f"{[round(t, 3) for t in times[2]]}: best {best[1]:.3f} against "
+          f"{best[2]:.3f} (x{best[1] / best[2]:.3f}); outputs bitwise equal")
+    return {**held, "kernel": kernel, "launches": HOST_BUCKETS,
+            "depth_ms": times, "latency_ms": latency * 1e3}
+
+
 def step_u_topk(model, tc, params, memory, batches):
     """Both top-k kernels on the per-leaf step's own u: one more step of
     the run above (launches not counted) hands its (152064, 2560) rows,
@@ -1474,11 +1662,12 @@ def step_u_topk(model, tc, params, memory, batches):
 
 
 def profile_steps(model, tc, params, memory, batches, dev, n: int = 5,
-                  opt=(), count: int = STEPS) -> None:
+                  opt=(), count: int = STEPS) -> tuple:
     """Where a path's step time goes: torch.profiler over ``n`` steady
     steps continuing the run above (launches here are not counted).
     Prints the wall time per step, the device's busy time per step
-    (kernel time, one stream) and the kernels that take the most."""
+    (kernel time, one stream) and the kernels that take the most; returns
+    (wall, busy) ms per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1507,6 +1696,7 @@ def profile_steps(model, tc, params, memory, batches, dev, n: int = 5,
     for e in top:
         print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms/step "
               f"x{e.count // n:<4d} {e.key[:150]}")
+    return wall, busy
 
 
 def single_row_inputs(dev, R, C, seed):
@@ -2588,8 +2778,6 @@ def _pod_profile(model, tc, layout, params, memory, batches, live, dev,
 def pod_rank_work(rank: int, dev) -> dict:
     """The pod phase's work on one rank (see ``phase_pod``); raises on any
     failed check. Returns what the parent prints and compares."""
-    import dataclasses
-
     import numpy as np
     import torch.distributed as dist
 
@@ -2598,6 +2786,8 @@ def pod_rank_work(rank: int, dev) -> dict:
     from repro_torch.core.distributed import (SyncConfig,
                                               bucketed_message_bytes,
                                               bucketed_sync_gradients)
+    from repro_torch.core.selfcheck import (overlap_selfcheck,
+                                            repack_selfcheck)
     from repro_torch.data import ShardedBatcher, token_batches
     from repro_torch.kernels.ops import _resolve_method
     from repro_torch.kernels.ref import eta32
@@ -2736,8 +2926,27 @@ def pod_rank_work(rank: int, dev) -> dict:
         _rank_fail(f"pod_budgeted: {rec_b['bytes']} over the budget "
                    f"{budget} B")
     out["pod_budgeted run"] = rec_b
+    # the same run at overlap off and on (its chains' R stage included):
+    # params and memory bitwise the run's above (overlap None), on every
+    # rank
+    kept = [t.cpu() for t in tree_leaves(params) + list(memory)]
     del params, memory
     torch.cuda.empty_cache()
+    for ov in (False, True):
+        name = f"pod_budgeted run, overlap {'on' if ov else 'off'}"
+        rec_o, params, memory, _ = run(name, dataclasses.replace(
+            tc_b, sync=dataclasses.replace(tc_b.sync, overlap=ov)),
+            POD_BUDGET_STEPS, 1 + sum(1 for i in range(1, POD_BUDGET_STEPS)
+                                      if i % POD_REFRESH == 0))
+        rec_o["bitwise_overlap_none"] = all(
+            same_bits(a, b.cpu()) for a, b in zip(
+                kept, tree_leaves(params) + list(memory)))
+        if not rec_o["bitwise_overlap_none"]:
+            _rank_fail(f"{name}: params or memory differ from overlap None")
+        out[name] = rec_o
+        del params, memory
+        torch.cuda.empty_cache()
+    del kept
 
     # the chain at bf16 wire values: the pod mean, its re-select and the
     # residual in bf16. threshold_onehot (the reference's threshold select
@@ -2881,6 +3090,14 @@ def pod_rank_work(rank: int, dev) -> dict:
         _rank_fail("a constant live pod k differs from the static pod k")
     out["small"] = {"grad_err": grad_err, "loss_err": loss_err,
                     "sync_bitwise": same, "constant_live_k_bitwise": const}
+
+    # the bucket pipeline's self-checks on this layout, on the card
+    checks = {"overlap": overlap_selfcheck(layout, device=dev),
+              "repack": repack_selfcheck(layout, device=dev)}
+    if not all(v for c in checks.values() for k, v in c.items()
+               if k != "padded_vs_live_bytes"):
+        _rank_fail(f"self-checks: {checks}")
+    out["selfchecks"] = checks
     return out
 
 
@@ -2951,7 +3168,9 @@ def phase_pod(dev) -> dict:
             (p, d) for p in range(PODS) for d in range(POD_DATA)]:
         fail("pod sync: the ranks do not form the (pod, data) layout")
     launches = {}
-    for run in ("refresh run", "pod_budgeted run", "bf16 run"):
+    for run in ("refresh run", "pod_budgeted run",
+                "pod_budgeted run, overlap off", "pod_budgeted run, overlap on",
+                "bf16 run"):
         first = recs[0][run]
         for r in recs[1:]:
             if (r[run]["losses"], r[run]["schedule"]) != (
@@ -3002,6 +3221,11 @@ def phase_pod(dev) -> dict:
           f"{max(x['loss_err'] for x in small):.3g}; the 4-rank sync from "
           "the card's gradients bitwise on the card and the CPU; a constant "
           "live pod k bitwise the static pod k (params and memory)")
+    print("pod sync pod_budgeted run at overlap off and on: params and "
+          "memory bitwise the overlap None run's on every rank")
+    checks = recs[0]["selfchecks"]
+    print(f"pod sync self-checks on the (2, 2) layout, on the card: "
+          f"overlap {checks['overlap']}; repack {checks['repack']}")
     print(f"pod sync phase: {secs:.1f} s; its top-k launches {reselect}")
     return launches
 
@@ -3017,11 +3241,13 @@ def main() -> None:
     bf16_memory = phase_bf16_memory(dev)
     phase_cutover(dev)
     phase_single_row(dev)
+    host = phase_host_pipeline(dev)
     pod_launches = phase_pod(dev)
     by_arch = {ARCH: {"bucketed": phase_bucketed(dev),
                       "topk preset": phase_topk_preset(dev),
-                      "per-leaf": phase_leaf(dev, leaf_shapes[ARCH])},
-               **phase_moe(dev, leaf_shapes)}
+                      "per-leaf": phase_leaf(dev, leaf_shapes[ARCH])}}
+    overlap_launches = phase_overlap(dev, leaf_shapes[ARCH])
+    by_arch.update(phase_moe(dev, leaf_shapes))
     for arch, (depth, nbytes) in DENSE.items():
         by_arch[arch] = {"per-leaf": phase_leaf(
             dev, leaf_shapes[arch], arch, depth, ("argmax_onehot",), nbytes,
@@ -3029,7 +3255,9 @@ def main() -> None:
     by_arch[GRIFFIN_ARCH] = phase_griffin(dev, leaf_shapes)
     by_path = {"optimizer modes": phase_opt_modes(dev, leaf_shapes[ARCH]),
                f"seq {LONG_SEQ}": phase_long(dev), "pod sync": pod_launches,
-               "bf16 bucket memory": bf16_memory}
+               "bf16 bucket memory": bf16_memory,
+               "overlap": overlap_launches,
+               "host pipeline": {host["kernel"]: host["launches"]}}
     layer_costs(dev)
     by_arch[RWKV_ARCH] = {
         "bucketed": phase_bucketed(dev, RWKV_ARCH, RWKV_LAYERS, RWKV_SHAPE,

@@ -10,22 +10,33 @@ Each data-parallel worker w:
   5. scatters the W*k received pairs into a dense update and divides by W,
   6. keeps m_w' = u_w - own_selection.
 
-A sparse bucket or leaf runs the reference's stage order (its
-``_sparse_stages``): select -> encode -> gather -> decode -> densify -> / W.
+Each bucket or leaf is a chain of stages, the reference's: a sparse one's
+``_sparse_stages`` E (select, encode), G (gather), D (decode, densify, /
+W); a dense one's ``_dense_stages``, one comm stage (the mean
+all-reduce). The chains run through ``core.pipeline.run_schedule`` at
+``SyncConfig.overlap_depth()``: at ``overlap=None`` bucket after bucket,
+each collective waited right after its issue (the synchronous op
+sequence); at ``False`` the strict sequential plan (in eager PyTorch the
+same order); at ``True`` the double buffer, bucket b's gather in flight
+(``async_op=True``; its work handle and buffers held in a
+``pipeline.Pending``) while bucket b+1 selects and encodes. Every
+collective is issued in the planner's order, the same on every rank, and
+every value is computed by the same ops at every depth, so the three
+modes give the same bits.
 ``bucketed_sync_gradients`` runs steps 2, 3 and 6 as one fused CUDA
 kernel per sparse bucket (``kernels.fused_memsgd_update``, its branch
 resolved from k by ``method="auto"``, from the fused kernel's own measured
 cutover on the card): its residual m' is
 the reference's ``u - own`` (up to the sign of zero at selected entries).
 ``sparse_sync_gradients``, the per-leaf path (the train CLI's default),
-forms u per leaf, moves the leaf's column axis last and selects with
+forms u per leaf in its E stage, moves the leaf's column axis last and selects with
 ``kernels.row_topk``: the reference's ``selection`` variants exist for
 XLA's partitioner, and in the port each maps to a top-k method of one
 contract (``_row_topk_method``).
 
 The two-level sync (``strategy="hierarchical"`` with a ``pod_axis``, on a
 ``launch.mesh.Layout`` of (pod, data) process groups; the reference's
-``_hier_stages``): the workers' pairs gather inside their pod at k_row,
+``_hier_stages``: E1, G1, M, R, G2, D): the workers' pairs gather inside their pod at k_row,
 each worker densifies the pod mean, re-selects it at the bucket's pod k
 (``kernels.row_topk``) and keeps the pod residual (the pod mean less what
 it selected) in its memory; only that summary gathers across the pods,
@@ -34,10 +45,11 @@ and the update is its densified mean over the pods. With
 every shape, wire buffer and gather stays at the static ceiling
 ``pod_k_max_for_bucket`` and ``kernels.topk_select.mask_live_k`` pads the
 tail with (-0.0, 0) no-ops, whose count the packed header carries. The
-``repack`` boundary before the cross-pod gather is the identity inside a
-step, as the reference's in-trace one; ``repack_transport`` is the
-transport's half (inline; ``bucketed_message_bytes(pod_ks=)`` accounts
-it). A hierarchical sync without a pod axis is the flat chain.
+``repack`` boundary before the cross-pod gather (the R stage) is the
+identity inside a step, as the reference's in-trace one, so the gather
+ships the k_max-padded buffer; ``repack_transport`` is the transport's
+half (inline, or over a host link with ``link=``;
+``bucketed_message_bytes(pod_ks=)`` accounts it). A hierarchical sync without a pod axis is the flat chain.
 
 The wire: ``"unpacked"`` gathers the (value_dtype values, int32 indices)
 arrays; ``"packed"`` encodes each worker's pairs into one uint32 buffer
@@ -66,13 +78,13 @@ What the port runs: the ``sparse_allgather``, ``hierarchical`` and
 two-level: the bf16 pod mean is re-selected by the bf16 row top-k
 kernels, or on its float32 keys where the reference's argmax loop keeps
 them), any number of workers, and the ``dense``, ``topk`` and
-``pod_budgeted`` presets. Every other option raises
-``NotImplementedError`` naming it: quantization, local steps > 1 and the
-overlap schedule.
+``pod_budgeted`` presets, at every ``overlap``. Every other option raises
+``NotImplementedError`` naming it: quantization and local steps > 1.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -80,6 +92,7 @@ import torch
 
 from repro_torch.core import buckets as bk
 from repro_torch.core import encoding as enc
+from repro_torch.core import pipeline
 from repro_torch.kernels import fused_memsgd_update, row_topk
 from repro_torch.kernels.ref import eta32
 from repro_torch.kernels.topk_select import mask_live_k
@@ -119,7 +132,9 @@ class SyncConfig:
     wire: str = "unpacked"  # | "packed" (core.encoding)
     value_dtype: str = "float32"
     quant: Optional[int] = None  # QSGD levels, not ported
-    overlap: Optional[bool] = None  # bucket pipeline schedule, not ported
+    # the bucket pipeline's schedule (core.pipeline): None the plain
+    # bucket-after-bucket emission, False depth 1, True the double buffer
+    overlap: Optional[bool] = None
     # the two-level (hierarchical) sync: the pod re-compression ratio
     # (None: ``ratio``), per-bucket ratios index-aligned with the bucket
     # plan (``autotune_pod_ratios``), the autotune's mass-capture target,
@@ -207,7 +222,6 @@ class SyncConfig:
         unported = [
             (self.quant is not None, "quant (QSGD wire quantization)"),
             (self.local_steps > 1, "local_steps > 1"),
-            (self.overlap is not None, "overlap (bucket pipeline)"),
         ]
         for hit, name in unported:
             if hit:
@@ -216,6 +230,11 @@ class SyncConfig:
         if plan is not None:
             validate_pod_ratios(self, plan)
         return self
+
+    def overlap_depth(self) -> Optional[int]:
+        """The bucket pipeline's depth for ``overlap``
+        (``pipeline.overlap_depth``)."""
+        return pipeline.overlap_depth(self.overlap)
 
     def k_for(self, row_len: int) -> int:
         k = max(self.k_min, int(round(self.ratio * row_len)))
@@ -298,67 +317,144 @@ def world_size() -> int:
     return torch.distributed.get_world_size() if distributed() else 1
 
 
+class _Work:
+    """Collectives' work handles waited together (``wait()``), with the
+    tensors they read kept referenced until then (a contiguous copy that
+    no caller holds). No handle: the collective completed on issue."""
+
+    def __init__(self, works=(), keep=()):
+        self._works, self._keep = list(works), tuple(keep)
+
+    def wait(self) -> bool:
+        for w in self._works:
+            w.wait()
+        self._works, self._keep = [], ()
+        return True
+
+
+def _group_size(group=None) -> int:
+    return torch.distributed.get_world_size(group) if distributed() else 1
+
+
+def _all_gather_async(x: torch.Tensor, group=None):
+    """Issue the all-gather of x over the group's members (the world
+    without a ``group``) with ``async_op=True``: returns ``(out, work)``;
+    once ``work.wait()`` returned, out, (n,) + x.shape, holds every
+    member's x in the group's rank order. Without torch.distributed: x
+    with a leading axis and a complete handle."""
+    if not distributed():
+        return x.unsqueeze(0), _Work()
+    n = torch.distributed.get_world_size(group)
+    flat = x.contiguous().view(-1)
+    out = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
+    work = torch.distributed.all_gather_into_tensor(out, flat, group=group,
+                                                    async_op=True)
+    return out.view((n,) + tuple(x.shape)), _Work([work], [flat])
+
+
 def _all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
-    """(n,) + x.shape: every member's x in the group's rank order (the
-    world without a ``group``; x itself, with a leading axis, without
-    torch.distributed)."""
-    if not distributed():
-        return x.unsqueeze(0)
-    n = torch.distributed.get_world_size(group)
-    out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
-    torch.distributed.all_gather_into_tensor(out, x.contiguous().view(-1),
-                                             group=group)
-    return out.view((n,) + tuple(x.shape))
+    """``_all_gather_async``, waited: (n,) + x.shape."""
+    out, work = _all_gather_async(x, group)
+    work.wait()
+    return out
 
 
-def _mean(u: torch.Tensor, group=None) -> torch.Tensor:
-    """The mean of u over the group's members (every worker without a
-    ``group``; the reference's ``pmean``): a sum all-reduce of a copy,
-    then / n."""
+def _mean_async(u: torch.Tensor, group=None):
+    """Issue the sum all-reduce of a copy of u over the group's members
+    (every worker without a ``group``) with ``async_op=True``: returns
+    ``(out, work)``; once waited, ``_mean_of(out, group)`` is the mean (the
+    reference's ``pmean``). Without torch.distributed: u itself and a
+    complete handle."""
     if not distributed():
-        return u
+        return u, _Work()
     out = u.clone()
-    torch.distributed.all_reduce(out, group=group)
-    n = torch.distributed.get_world_size(group)
+    work = torch.distributed.all_reduce(out, group=group, async_op=True)
+    return out, _Work([work])
+
+
+def _mean_of(out: torch.Tensor, group=None) -> torch.Tensor:
+    """The waited sum of ``_mean_async`` / n, in place."""
+    n = _group_size(group)
     return out.div_(n) if n > 1 else out
 
 
-def _gather_pairs(vals: torch.Tensor, idx: torch.Tensor, group=None):
-    """(rows, k) pairs -> every member's, tiled along the last axis in
-    rank order: (rows, n*k)."""
-    rows, k = vals.shape
-    tile = lambda x: x.movedim(0, 1).reshape(rows, -1)  # noqa: E731
-    return tile(_all_gather(vals, group)), tile(_all_gather(idx, group))
+def _mean(u: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of u over the group's members, waited."""
+    out, work = _mean_async(u, group)
+    work.wait()
+    return _mean_of(out, group)
 
 
-def _gather_buf(buf: torch.Tensor, group=None) -> torch.Tensor:
-    """Every member's wire buffer, (n, words) uint32, in rank order (the
-    collective moves their int32 view)."""
-    return _all_gather(buf.view(torch.int32), group).view(torch.uint32)
+def _gather_pairs_async(vals: torch.Tensor, idx: torch.Tensor, group=None):
+    """Issue the gathers of (rows, k) pairs: ``((gv, gi), work)``, each
+    (n, rows, k) in rank order once waited (``_tile`` lays them out)."""
+    gv, wv = _all_gather_async(vals, group)
+    gi, wi = _all_gather_async(idx, group)
+    return (gv, gi), _Work([wv, wi])
+
+
+def _tile(x: torch.Tensor) -> torch.Tensor:
+    """Gathered (n, rows, k) -> (rows, n*k): the members' pairs tiled
+    along the last axis in rank order (a copy: read it once waited)."""
+    return x.movedim(0, 1).reshape(x.shape[1], -1)
+
+
+def _gather_buf_async(buf: torch.Tensor, group=None):
+    """Issue the gather of every member's wire buffer: ``(bufs, work)``,
+    (n, words) uint32 in rank order once waited (the collective moves
+    their int32 view)."""
+    out, work = _all_gather_async(buf.view(torch.int32), group)
+    return out.view(torch.uint32), work
 
 
 def _decode_packed(bufs: torch.Tensor, wspec: enc.WireSpec):
     """(n, words) gathered buffers -> pairs (rows, n*k) in the tile order
-    of ``_gather_pairs``, so the densify sees the unpacked wire's
-    pairs."""
+    of ``_tile``, so the densify sees the unpacked wire's pairs."""
     vals, idx = zip(*(enc.decode(wspec, b) for b in bufs))
     tile = lambda xs: torch.stack(xs, 1).reshape(wspec.rows, -1)  # noqa
     return tile(vals), tile(idx)
 
 
-def _exchange(cfg: "SyncConfig", vals: torch.Tensor, idx: torch.Tensor,
-              cols: int, group=None):
-    """The wire stages of one sparse bucket or leaf: this worker's (rows,
-    k) pairs -> every group member's, (rows, n*k) values in
-    ``value_dtype`` and int32 indices. Packed: encode -> gather ->
-    decode; unpacked: gather."""
-    value_dtype = getattr(torch, cfg.value_dtype)
+def _payload(cfg: "SyncConfig", vals: torch.Tensor, idx: torch.Tensor,
+             cols: int, live_n: Optional[int] = None):
+    """This worker's message of its (rows, k) pairs: the packed buffer
+    (``live_n`` stamped into its header), or the (value_dtype values,
+    int32 indices) arrays."""
     if cfg.wire == "packed":
         rows, k = vals.shape
-        wspec = enc.WireSpec(rows, cols, k, cfg.value_dtype)
-        return _decode_packed(_gather_buf(enc.encode(wspec, vals, idx),
-                                          group), wspec)
-    return _gather_pairs(vals.to(value_dtype), idx, group)
+        return enc.encode(enc.WireSpec(rows, cols, k, cfg.value_dtype), vals,
+                          idx, live_n=live_n)
+    return vals.to(getattr(torch, cfg.value_dtype)), idx
+
+
+def _issue_gather(cfg: "SyncConfig", payload, group=None):
+    """Issue the gather of a ``_payload`` over the group: ``(got,
+    work)``; ``_received`` reads ``got`` once waited."""
+    if cfg.wire == "packed":
+        return _gather_buf_async(payload, group)
+    return _gather_pairs_async(*payload, group)
+
+
+def _received(cfg: "SyncConfig", got, rows: int, cols: int, k: int):
+    """What a waited ``_issue_gather`` received: every member's pairs,
+    (rows, n*k) values in ``value_dtype`` and int32 indices, tiled in rank
+    order (packed: decoded)."""
+    if cfg.wire == "packed":
+        return _decode_packed(got, enc.WireSpec(rows, cols, k,
+                                                cfg.value_dtype))
+    gv, gi = got
+    return _tile(gv), _tile(gi)
+
+
+def _exchange(cfg: "SyncConfig", vals: torch.Tensor, idx: torch.Tensor,
+              cols: int, group=None):
+    """The wire stages of one sparse bucket or leaf, waited: this worker's
+    (rows, k) pairs -> every group member's, (rows, n*k) values in
+    ``value_dtype`` and int32 indices. Packed: encode -> gather ->
+    decode; unpacked: gather."""
+    got, work = _issue_gather(cfg, _payload(cfg, vals, idx, cols), group)
+    work.wait()
+    return _received(cfg, got, vals.shape[0], cols, vals.shape[1])
 
 
 def _densify_onehot(cfg: "SyncConfig", k_row: int) -> bool:
@@ -467,17 +563,6 @@ def _reciprocal32(n: int) -> float:
     return float(np.float32(1.0 / n))
 
 
-def _flat_update(cfg: "SyncConfig", like: torch.Tensor, col_axis: int,
-                 vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The flat chain after the select: every worker's pairs, densified
-    into a tensor of ``like``'s layout, / W, as float32."""
-    gv, gi = _exchange(cfg, vals, idx, like.shape[col_axis])
-    out = torch.zeros_like(like, dtype=getattr(torch, cfg.value_dtype))
-    k_row = vals.shape[1]
-    return _densify_update(out, col_axis, gv, gi, k_row,
-                           _densify_onehot(cfg, k_row))
-
-
 def _two_level_layout(cfg: "SyncConfig", layout):
     """The layout the two-level chain runs over, or None for the flat
     chain: the hierarchical strategy with a pod axis needs the (pod,
@@ -492,74 +577,175 @@ def _two_level_layout(cfg: "SyncConfig", layout):
     return layout
 
 
-def _two_level_update(cfg: "SyncConfig", layout, memory: torch.Tensor,
-                      col_axis: int, vals: torch.Tensor, idx: torch.Tensor,
-                      k_pod: int, k_live: Optional[int] = None,
-                      level_bytes: Optional[dict] = None) -> torch.Tensor:
-    """The two-level chain after this worker's level-1 select (the
-    reference's ``_hier_stages``): gather the (rows, k_row) pairs in the
-    pod, densify the pod mean (rows, cols), re-select it at ``k_pod``
-    (``k_live`` live slots: ``mask_live_k``), add the pod residual, the
-    pod mean with the live selection zeroed, into ``memory`` (u - own, in
-    place, ``col_axis`` its column axis), gather the summary across the
-    pods and return its densified mean over the pods, float32, in
-    ``memory``'s layout.
+def _u(m: torch.Tensor, g: torch.Tensor, eta: float) -> torch.Tensor:
+    """u = m + eta*g: two float32 ops, ``eta`` rounded to float32."""
+    return torch.add(m, torch.mul(g.to(m.dtype), eta))
 
-    The pod mean, its re-select and the residual stay in ``value_dtype``
-    until the final cast (at bf16 the re-select is the bf16 row top-k,
-    or the float32 one on the reference's argmax keys:
-    ``_pod_mean_select``; ``memory.add_`` widens the residual into the float32 memory, as the
-    reference's ``(u - own) + residual``). Both densifies take the form
-    the level-1 ``k_row`` picks (``_densify_onehot``), as the reference's
-    one ``densify``. Zeroing the selection is the reference's ``pod_mean -
-    pod_sel`` at every finite entry: x - x is +0.0, and the (-0.0, 0) pads
-    are left out of the zeroing as they are no-ops in the subtraction.
-    ``level_bytes`` (a dict) adds this worker's realized bytes per level:
-    the intra-pod message, and the cross-pod message as the repack
-    transport ships it when ``cfg.repack`` (``repack_transport``,
-    inline)."""
+
+def _gather_stage(cfg: "SyncConfig", group=None):
+    """A chain's G stage: (memory, payload) -> ``Pending`` of (memory,
+    what the group's gather received), the gather in flight until the
+    bucket's next stage resolves it."""
+    def gather(st):
+        mem, payload = st
+        got, work = _issue_gather(cfg, payload, group)
+        return pipeline.Pending([work], lambda: (mem, got))
+    return gather
+
+
+def _dense_stages(eta: float):
+    """The chain of one dense leaf or bucket (the reference's
+    ``_dense_stages``): one comm stage, (m, g) -> u, then the mean
+    all-reduce of u in flight; resolved, (update, memory): the mean, and
+    u - own with own = u."""
+    def allreduce(x):
+        u = _u(*x, eta)
+        out, work = _mean_async(u)
+        own = u - u
+        return pipeline.Pending([work], lambda: (_mean_of(out), own))
+    return [allreduce], (pipeline.COMM,)
+
+
+def _select_encode_stage(cfg: "SyncConfig", select, rows: int, cols: int,
+                         k_row: int, level_bytes: Optional[dict] = None):
+    """A chain's E (E1) stage: ``select`` (m, g) -> (memory, this
+    worker's (rows, k_row) pairs), then the wire encode: (memory,
+    payload). ``level_bytes`` adds the message's bytes to "intra"."""
+    def select_encode(x):
+        mem, vals, idx = select(*x)
+        if level_bytes is not None:
+            level_bytes["intra"] += enc.message_nbytes(
+                rows, cols, k_row, cfg.value_dtype, cfg.wire)
+        return mem, _payload(cfg, vals, idx, cols)
+    return select_encode
+
+
+def _decode_stage(cfg: "SyncConfig", col_axis: int, rows: int, cols: int,
+                  k: int, onehot: bool):
+    """A chain's D stage: (memory, what a gather of k pairs a row
+    received) -> (update, memory): the decode, and the densify into a
+    tensor of the memory's layout (``col_axis`` its column axis), the
+    mean over the gather's members, as float32."""
+    def decode_apply(st):
+        mem, got = st
+        gv, gi = _received(cfg, got, rows, cols, k)
+        out = torch.zeros_like(mem, dtype=getattr(torch, cfg.value_dtype))
+        return _densify_update(out, col_axis, gv, gi, k, onehot), mem
+    return decode_apply
+
+
+def _sparse_stages(cfg: "SyncConfig", select, col_axis: int, rows: int,
+                   cols: int, k_row: int, level_bytes: Optional[dict] = None):
+    """The flat chain of one sparse leaf or bucket (the reference's
+    ``_sparse_stages``): E, the select and the wire encode; G, the
+    gather over every worker; D, the decode, the densify and / W. The
+    final state is (update, memory)."""
+    return ([_select_encode_stage(cfg, select, rows, cols, k_row,
+                                  level_bytes),
+             _gather_stage(cfg),
+             _decode_stage(cfg, col_axis, rows, cols, k_row,
+                           _densify_onehot(cfg, k_row))],
+            (pipeline.COMPUTE, pipeline.COMM, pipeline.COMPUTE))
+
+
+def _hier_stages(cfg: "SyncConfig", layout, select, col_axis: int, rows: int,
+                 cols: int, k_row: int, k_pod: int,
+                 k_live: Optional[int] = None,
+                 level_bytes: Optional[dict] = None):
+    """The two-level chain of one sparse leaf or bucket (the reference's
+    ``_hier_stages``):
+
+      E1 (compute): the select at k_row, the level-1 encode
+      G1 (comm):    the gather in the pod (the layout's data group)
+      M  (compute): the level-1 decode, the pod mean (rows, cols), its
+                    re-select at ``k_pod`` (``k_live`` live slots:
+                    ``mask_live_k``), the pod residual (the pod mean with
+                    the live selection zeroed) added into the memory in
+                    place, the level-2 encode
+      R  (repack):  only with ``cfg.repack``: the compaction point before
+                    the slow link, the identity on the buffer inside the
+                    step, as the reference's in-trace R
+      G2 (comm):    the gather across the pods (the layout's pod group)
+      D  (compute): the level-2 decode and its densified mean over the
+                    pods, float32, in the memory's layout
+
+    The final state is (update, memory). The pod mean, its re-select and
+    the residual stay in ``value_dtype`` until the final cast (at bf16
+    the re-select is the bf16 row top-k, or the float32 one on the
+    reference's argmax keys: ``_pod_mean_select``; ``add_`` widens the
+    residual into the float32 memory, as the reference's ``(u - own) +
+    residual``). Both densifies take the form the level-1 ``k_row`` picks
+    (``_densify_onehot``), as the reference's one ``densify``. Zeroing the
+    selection is the reference's ``pod_mean - pod_sel`` at every finite
+    entry: x - x is +0.0, and the (-0.0, 0) pads are left out of the
+    zeroing as they are no-ops in the subtraction. ``level_bytes`` adds
+    this worker's realized bytes per level: the intra-pod message, and
+    the cross-pod message as the repack transport ships it when
+    ``cfg.repack`` (``repack_transport``, counted at R)."""
     value_dtype = getattr(torch, cfg.value_dtype)
-    rows, k_row = vals.shape
-    onehot = _densify_onehot(cfg, k_row)
-    cols = memory.shape[col_axis]
-    gv, gi = _exchange(cfg, vals, idx, cols, layout.data_group)
-    if level_bytes is not None:
-        level_bytes["intra"] += enc.message_nbytes(
-            rows, cols, k_row, cfg.value_dtype, cfg.wire)
-    del vals, idx
-    pod_mean = torch.zeros((rows, cols), dtype=value_dtype,
-                           device=memory.device)
-    pvals, pidx = _pod_mean_select(cfg, pod_mean, gv, gi, k_row, k_pod)
-    del gv, gi
-    n_live = k_pod
-    if k_live is not None:
-        pvals, pidx = mask_live_k(pvals, pidx, k_live)
-        n_live = k_live
-    # the residual, kept in memory: identical on every worker of the pod
-    residual = pod_mean.scatter_(
-        1, pidx[:, :n_live].to(torch.int64), 0.0)
-    memory.movedim(col_axis, -1).add_(
-        residual.view(memory.movedim(col_axis, -1).shape))
-    del residual, pod_mean
-    if cfg.wire == "packed":
-        w2 = enc.WireSpec(rows, cols, k_pod, cfg.value_dtype)
-        buf = enc.encode(w2, pvals, pidx, live_n=k_live)
-        # cfg.repack: the compaction point before the slow link, the
-        # identity inside the step
+    n_live = k_pod if k_live is None else k_live
+
+    def pod_reselect_encode(st):
+        mem, got = st
+        gv, gi = _received(cfg, got, rows, cols, k_row)
+        del got
+        pod_mean = torch.zeros((rows, cols), dtype=value_dtype,
+                               device=mem.device)
+        pvals, pidx = _pod_mean_select(cfg, pod_mean, gv, gi, k_row, k_pod)
+        del gv, gi
+        if k_live is not None:
+            pvals, pidx = mask_live_k(pvals, pidx, k_live)
+        # the residual, kept in memory: identical on every worker of the pod
+        residual = pod_mean.scatter_(
+            1, pidx[:, :n_live].to(torch.int64), 0.0)
+        moved = mem.movedim(col_axis, -1)
+        moved.add_(residual.view(moved.shape))
+        del residual, pod_mean, moved
+        if level_bytes is not None and not cfg.repack:
+            level_bytes["cross"] += enc.message_nbytes(
+                rows, cols, k_pod, cfg.value_dtype, cfg.wire)
+        return mem, _payload(cfg, pvals, pidx, cols, live_n=k_live)
+
+    def repack_boundary(st):
         if level_bytes is not None:
             level_bytes["cross"] += (
-                repack_transport(w2, buf, live_n=k_live)[1] if cfg.repack
-                else w2.nbytes)
-        av, ai = _decode_packed(_gather_buf(buf, layout.pod_group), w2)
-    else:
-        if level_bytes is not None:
-            level_bytes["cross"] += enc.message_nbytes(
-                rows, cols, n_live if cfg.repack else k_pod,
-                cfg.value_dtype, cfg.wire)
-        av, ai = _gather_pairs(pvals, pidx, layout.pod_group)
-    del pvals, pidx
-    out = torch.zeros_like(memory, dtype=value_dtype)
-    return _densify_update(out, col_axis, av, ai, k_pod, onehot)
+                repack_transport(enc.WireSpec(rows, cols, k_pod,
+                                              cfg.value_dtype), st[1],
+                                 live_n=k_live)[1]
+                if cfg.wire == "packed" else enc.message_nbytes(
+                    rows, cols, n_live, cfg.value_dtype, cfg.wire))
+        return st
+
+    stages = [_select_encode_stage(cfg, select, rows, cols, k_row,
+                                   level_bytes),
+              _gather_stage(cfg, layout.data_group), pod_reselect_encode]
+    kinds = [pipeline.COMPUTE, pipeline.COMM, pipeline.COMPUTE]
+    if cfg.repack:
+        stages.append(repack_boundary)
+        kinds.append(pipeline.REPACK)
+    stages += [_gather_stage(cfg, layout.pod_group),
+               _decode_stage(cfg, col_axis, rows, cols, k_pod,
+                             _densify_onehot(cfg, k_row))]
+    kinds += [pipeline.COMM, pipeline.COMPUTE]
+    return stages, tuple(kinds)
+
+
+def _leaf_select(m: torch.Tensor, g: torch.Tensor, *, eta: float,
+                 col_axis: int, k_row: int, method: str):
+    """The per-leaf path's select: u = m + eta*g, its rows with the column
+    axis last (a contiguous copy when the axis was not last, freed once
+    selected), their top-k_row pairs (``kernels.row_topk``), and u with
+    this worker's selected entries zeroed as its memory (the reference's u
+    - own, up to the sign of zero there, as the fused kernel forms it).
+    Returns (memory, vals, idx)."""
+    u = _u(m, g, eta)
+    moved = u.movedim(col_axis, -1)
+    lead, C = moved.shape[:-1], moved.shape[-1]
+    rows = moved.reshape(-1, C).contiguous()
+    vals, idx = row_topk(rows, k_row, method=method)
+    del rows
+    moved.scatter_(-1, idx.to(torch.int64).view(*lead, k_row), 0.0)
+    return u, vals, idx
 
 
 def _row_topk_method(cfg: SyncConfig, k_row: int) -> str:
@@ -593,17 +779,17 @@ def sparse_sync_gradients(cfg: SyncConfig, memory_tree, grad_tree, eta,
 
     Per leaf: u = m + eta*g (two float32 ops, eta rounded to float32
     once). A leaf below ``dense_below`` entries, or every leaf under
-    ``strategy="dense"``, ships all of u. Any other leaf hands the kernel
-    its rows with the column axis last, contiguous (a copy when the axis
-    was not last, freed once selected), selects k = ``k_for(C)`` pairs per
-    row with ``kernels.row_topk``, keeps u with its own selected entries
-    zeroed as its memory (the reference's u - own, up to the sign of zero
-    there), sends the pairs over the wire and scatters every worker's
+    ``strategy="dense"``, ships all of u (``_dense_stages``). Any other
+    leaf selects k = ``k_for(C)`` pairs per row along its column axis
+    (``_leaf_select``), keeps u with its own selected entries zeroed as
+    its memory, sends the pairs over the wire and scatters every worker's
     pairs back through the moved view into a tensor in the parameter's
-    own layout as the update (in ``value_dtype``, / W, back to float32).
-    The two-level chain re-selects the pod mean at ``pod_k_for(C)`` and
-    adds the pod residual to the memory (static pod k only, as the
-    reference's per-leaf path).
+    own layout as the update (in ``value_dtype``, / W, back to float32):
+    ``_sparse_stages``. The two-level chain (``_hier_stages``) re-selects
+    the pod mean at ``pod_k_for(C)`` and adds the pod residual to the
+    memory (static pod k only, as the reference's per-leaf path). The
+    leaves' chains run through ``pipeline.run_schedule`` at
+    ``cfg.overlap_depth()``; every depth gives the same bits.
 
     Returns (update_tree [float32, SUBTRACT from params], new_memory_tree,
     bytes_per_worker_per_step). Every returned leaf has the layout of its
@@ -616,35 +802,33 @@ def sparse_sync_gradients(cfg: SyncConfig, memory_tree, grad_tree, eta,
     leaves_g, treedef = tree_flatten(grad_tree)
     leaves_m = treedef.flatten_up_to(memory_tree)
     leaves_c = _flatten_with(treedef, col_axes, len(leaves_g))
-    ups, mems = [], []
+    inits, stage_lists, kind_lists = [], [], []
     total = 0
     for m, g, c in zip(leaves_m, leaves_g, leaves_c):
-        u = torch.add(m, torch.mul(g.to(m.dtype), eta))
-        if cfg.strategy == "dense" or u.numel() < cfg.dense_below:
-            ups.append(_mean(u))  # own = u
-            mems.append(u - u)
-            total += u.numel() * u.element_size()
-            continue
-        ca = (c if c is not None else u.dim() - 1) % u.dim()
-        moved = u.movedim(ca, -1)
-        lead, C = moved.shape[:-1], moved.shape[-1]
-        rows = moved.reshape(-1, C).contiguous()
-        k_row = cfg.k_for(C)
-        vals, idx = row_topk(rows, k_row,
-                             method=_row_topk_method(cfg, k_row))
-        del rows
-        # memory = u - own: u (this leaf's own tensor) with this worker's
-        # selected entries zeroed, as the fused kernel forms it
-        moved.scatter_(-1, idx.to(torch.int64).view(*lead, k_row), 0.0)
-        if layout is not None:
-            ups.append(_two_level_update(cfg, layout, u, ca, vals, idx,
-                                         cfg.pod_k_for(C)))
+        inits.append((m, g))
+        if cfg.strategy == "dense" or m.numel() < cfg.dense_below:
+            stages, kinds = _dense_stages(eta)
+            total += m.numel() * m.element_size()
         else:
-            ups.append(_flat_update(cfg, u, ca, vals, idx))
-        mems.append(u)
-        total += _sparse_leaf_bytes(cfg, u.numel() // C, C)
-        del u, moved, vals, idx
-    return treedef.unflatten(ups), treedef.unflatten(mems), total
+            ca = (c if c is not None else m.dim() - 1) % m.dim()
+            C = m.shape[ca]
+            rows, k_row = m.numel() // C, cfg.k_for(C)
+            select = functools.partial(
+                _leaf_select, eta=eta, col_axis=ca, k_row=k_row,
+                method=_row_topk_method(cfg, k_row))
+            if layout is not None:
+                stages, kinds = _hier_stages(cfg, layout, select, ca, rows,
+                                             C, k_row, cfg.pod_k_for(C))
+            else:
+                stages, kinds = _sparse_stages(cfg, select, ca, rows, C,
+                                               k_row)
+            total += _sparse_leaf_bytes(cfg, rows, C)
+        stage_lists.append(stages)
+        kind_lists.append(kinds)
+    outs = pipeline.run_schedule(inits, stage_lists, kind_lists,
+                                 cfg.overlap_depth())
+    return (treedef.unflatten([upd for upd, _ in outs]),
+            treedef.unflatten([mem for _, mem in outs]), total)
 
 
 def bucketed_sync_gradients(
@@ -663,13 +847,21 @@ def bucketed_sync_gradients(
     ``memory_bufs``: this worker's float32 (rows, cols) memory, one per
     bucket. ``eta``: a number. ``layout``: as ``sparse_sync_gradients``'.
 
-    The two-level chain's pod k is each bucket's ``pod_k_for_bucket``; with
-    ``cfg.pod_dynamic``, ``pod_ks`` (one host int per bucket) gives each
-    bucket's live pod k, clipped to [1, ``pod_k_max_for_bucket``], and
-    every buffer, wire message and gather keeps that static k_max shape.
-    ``level_bytes`` (a dict with "intra" and "cross") adds the bytes this
-    worker's messages realized at each level (``_two_level_update``; a
-    dense bucket counts its buffer at both levels, as the accounting).
+    A sparse bucket's E stage is the fused kernel
+    (``kernels.fused_memsgd_update``: u, its row top-k and the residual
+    memory in one pass); its chain is the flat one or, on a layout, the
+    two-level one, whose pod k is each bucket's ``pod_k_for_bucket``;
+    with ``cfg.pod_dynamic``, ``pod_ks`` (one host int per bucket) gives
+    each bucket's live pod k, clipped to [1, ``pod_k_max_for_bucket``],
+    and every buffer, wire message and gather keeps that static k_max
+    shape. ``level_bytes`` (a dict with "intra" and "cross") adds the
+    bytes this worker's messages realized at each level (``_hier_stages``;
+    a dense bucket counts its buffer at both levels, as the accounting).
+    The buckets' chains run through ``pipeline.run_schedule`` at
+    ``cfg.overlap_depth()``; each chain's input is its (memory, packed
+    gradient) pair, and each packed gradient is dropped once its bucket's
+    first stage consumed it, so that the bucket's update can take its
+    block (a 2.75e9-element bucket holds 10.3 GiB).
 
     Returns (update_tree [float32 views into the update buffers, SUBTRACT
     from params], new_memory_bufs, bytes_per_worker_per_step:
@@ -683,61 +875,64 @@ def bucketed_sync_gradients(
             "SyncConfig.pod_dynamic needs pod_ks (one live pod k per "
             "bucket), or unset pod_dynamic for static pod ratios")
     g_bufs = bk.pack(plan, grad_tree, dtype=torch.float32)
-    ups, mems = [], []
-    for b, (spec, m) in enumerate(zip(plan.buckets, memory_bufs)):
-        # each packed gradient is dropped once consumed, so that the
-        # bucket's update can take its block (a 2.75e9-element bucket
-        # holds 10.3 GiB)
-        g, g_bufs[b] = g_bufs[b], None
+    inits = list(zip(memory_bufs, g_bufs))
+    del g_bufs
+    stage_lists, kind_lists = [], []
+    for b, spec in enumerate(plan.buckets):
         if cfg.strategy == "dense" or spec.kind == "dense":
-            u = torch.add(m, torch.mul(g, eta32(eta)))
-            ups.append(_mean(u))  # own = u
-            mems.append(u - u)
+            stages, kinds = _dense_stages(eta32(eta))
             if level_bytes is not None:
                 nb = spec.rows * spec.cols * 4
                 level_bytes["intra"] += nb
                 level_bytes["cross"] += nb if layout is not None else 0
-            continue
-        k_row = cfg.k_for(spec.cols)
-        new_m, vals, idx = fused_memsgd_update(m, g, eta, k_row)
-        del g
-        if layout is not None:
-            k_live = None
-            if cfg.pod_dynamic:
-                k_pod = cfg.pod_k_max_for_bucket(b, spec.cols, layout.n_data)
-                k_live = min(max(int(pod_ks[b]), 1), k_pod)
-            else:
-                k_pod = cfg.pod_k_for_bucket(b, spec.cols)
-            ups.append(_two_level_update(cfg, layout, new_m, 1, vals, idx,
-                                         k_pod, k_live, level_bytes))
         else:
-            ups.append(_flat_update(cfg, new_m, 1, vals, idx))
-            if level_bytes is not None:
-                level_bytes["intra"] += _sparse_leaf_bytes(cfg, spec.rows,
-                                                           spec.cols)
-        mems.append(new_m)
-        del vals, idx
+            k_row = cfg.k_for(spec.cols)
+            select = functools.partial(fused_memsgd_update, eta=eta, k=k_row)
+            if layout is not None:
+                k_live = None
+                if cfg.pod_dynamic:
+                    k_pod = cfg.pod_k_max_for_bucket(b, spec.cols,
+                                                     layout.n_data)
+                    k_live = min(max(int(pod_ks[b]), 1), k_pod)
+                else:
+                    k_pod = cfg.pod_k_for_bucket(b, spec.cols)
+                stages, kinds = _hier_stages(
+                    cfg, layout, select, 1, spec.rows, spec.cols, k_row,
+                    k_pod, k_live, level_bytes)
+            else:
+                stages, kinds = _sparse_stages(
+                    cfg, select, 1, spec.rows, spec.cols, k_row, level_bytes)
+        stage_lists.append(stages)
+        kind_lists.append(kinds)
+    outs = pipeline.run_schedule(inits, stage_lists, kind_lists,
+                                 cfg.overlap_depth())
     total = bucketed_message_bytes(
         cfg, plan, n_data=layout.n_data if layout is not None else None)
-    return bk.unpack(plan, ups), tuple(mems), total
+    return (bk.unpack(plan, [upd for upd, _ in outs]),
+            tuple(mem for _, mem in outs), total)
 
 
 def repack_transport(wspec: enc.WireSpec, buf: torch.Tensor, link=None,
                      live_n: Optional[int] = None):
-    """The transport half of the header-aware repack, inline: compact a
-    k-padded wire buffer to its live payload (``encoding.repack``; its
-    live count from ``live_n`` or the buffer's header) and re-expand it to
-    the padded layout (``encoding.repad``, bit for bit the buffer that
-    went in). Returns ``(padded_buf, wire_nbytes)``, the bytes the
-    compacted message ships. The reference's ``link=`` form, which hands
-    the small buffer to an emulated link, belongs to the host pipeline,
-    which is not ported."""
-    if link is not None:
-        raise NotImplementedError(
-            "repack_transport's link= form (the host pipeline) is not "
-            "ported to the PyTorch port yet")
+    """The transport half of the header-aware repack: compact a k-padded
+    wire buffer to its live payload (``encoding.repack``; its live count
+    from ``live_n`` or the buffer's header), ship exactly that many bytes
+    and re-expand it to the padded layout (``encoding.repad``, bit for bit
+    the buffer that went in, so the transport is invisible downstream).
+
+    Returns ``(padded_buf_or_future, wire_nbytes)``, the bytes the
+    compacted message ships. With ``link=None`` the round trip runs
+    inline; with a ``pipeline.EmulatedLink``-style link the small buffer
+    rides ``link.transfer(small_buf, wire_nbytes)`` and the returned
+    future repads on ``.result()``: in a ``run_host_pipeline`` comm stage
+    the planner overlaps the live-k-sized transfer like any gather."""
     small_spec, small_buf = enc.repack(wspec, buf, live_n)
-    return enc.repad(wspec, small_spec, small_buf), small_spec.nbytes
+    nbytes = small_spec.nbytes
+    if link is None:
+        return enc.repad(wspec, small_spec, small_buf), nbytes
+    fut = link.transfer(small_buf, nbytes)
+    return pipeline.Pending(
+        [], lambda: enc.repad(wspec, small_spec, fut.result())), nbytes
 
 
 def _sparse_leaf_bytes(cfg: SyncConfig, rows: int, cols: int,

@@ -3,6 +3,7 @@ paper's logistic-regression datasets."""
 from repro_torch.data.pipeline import (
     DeviceBatcher,
     InfiniteStream,
+    Prefetcher,
     ShardedBatcher,
     take,
 )
@@ -20,4 +21,4 @@ from repro_torch.data.synthetic import (
 __all__ = ["token_batches", "LogRegData", "make_epsilon_like",
            "make_rcv1_like", "logreg_loss_np", "logreg_grad_np",
            "logreg_loss_torch", "logreg_grad_torch", "InfiniteStream",
-           "DeviceBatcher", "ShardedBatcher", "take"]
+           "DeviceBatcher", "Prefetcher", "ShardedBatcher", "take"]

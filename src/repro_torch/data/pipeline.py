@@ -1,9 +1,12 @@
-"""Input pipeline: bounded consumption and device placement (port of
-``repro.data.pipeline``): ``DeviceBatcher`` places whole batches on one
-device, ``ShardedBatcher`` gives each data-parallel worker its slice of
-the global batch, as the reference's mesh sharding does."""
+"""Input pipeline: bounded consumption, prefetch and device placement
+(port of ``repro.data.pipeline``): ``DeviceBatcher`` places whole batches
+on one device, ``ShardedBatcher`` gives each data-parallel worker its
+slice of the global batch, as the reference's mesh sharding does, with
+the host batches prefetched on a background thread (``Prefetcher``)."""
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -69,15 +72,59 @@ class DeviceBatcher:
             yield {k: self._put(v) for k, v in batch.items()}
 
 
+class Prefetcher:
+    """Background-thread prefetch of an iterator, at most ``depth`` items
+    ahead. The thread starts at construction and is a daemon, so an
+    abandoned stream does not keep the process alive. An exception the
+    source raises is raised again where the consumer reaches it."""
+
+    def __init__(self, it: Iterator, depth: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._it = it
+        self._done = object()
+        self._thread = threading.Thread(target=self._fill, daemon=True)
+        self._thread.start()
+
+    def _fill(self):
+        try:
+            for item in self._it:
+                self._q.put((False, item))
+        except Exception as e:  # handed to the consumer, raised there
+            self._q.put((True, e))
+        finally:
+            self._q.put((False, self._done))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        failed, item = self._q.get()
+        if failed:
+            raise item
+        if item is self._done:
+            self._q.put((False, self._done))  # every later next() stops too
+            raise StopIteration
+        return item
+
+
 class ShardedBatcher(DeviceBatcher):
     """Each worker's share of a global batch stream: rank w of W takes the
     contiguous rows [w * B/W, (w+1) * B/W) of every array's leading
     (batch) axis, on its own ``device`` (the reference's ``ShardedBatcher``
     places the same slice on worker w's device). ``rank`` and ``world``
-    default to the torch.distributed group's, else 0 and 1."""
+    default to the torch.distributed group's, else 0 and 1. The host
+    batches are prefetched ``prefetch`` ahead on a background thread
+    (0: none); slicing and the copy to the device stay on the consumer's
+    thread.
 
-    def __init__(self, it: Iterator[dict], device, rank=None, world=None):
-        super().__init__(it, device)
+    It typically wraps an unbounded stream, so ``len()`` and ``list()`` are
+    guarded as ``InfiniteStream``'s: bound consumption with
+    ``take(iter(b), n)``."""
+
+    def __init__(self, it: Iterator[dict], device, rank=None, world=None,
+                 prefetch: int = 2):
+        super().__init__(Prefetcher(it, prefetch) if prefetch else it,
+                         device)
         initialised = (torch.distributed.is_available()
                        and torch.distributed.is_initialized())
         if world is None:
@@ -87,6 +134,23 @@ class ShardedBatcher(DeviceBatcher):
         if not 0 <= rank < world:
             raise ValueError(f"rank {rank} outside a world of {world}")
         self.rank, self.world = rank, world
+
+    def __len__(self) -> int:
+        raise TypeError(
+            "ShardedBatcher wraps an (typically infinite) stream: len() "
+            "is undefined — bound it with repro_torch.data.take(iter(b), n)"
+        )
+
+    def __bool__(self) -> bool:
+        # without this, bool() falls back to the raising __len__
+        return True
+
+    def __length_hint__(self) -> int:
+        raise RuntimeError(
+            "ShardedBatcher wraps an (typically infinite) stream: list() "
+            "may never terminate — bound it with "
+            "repro_torch.data.take(iter(b), n)"
+        )
 
     def _shard(self, v):
         v = np.asarray(v)

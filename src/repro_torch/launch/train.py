@@ -583,7 +583,10 @@ _OVERRIDES = (("ratio", "ratio"), ("strategy", "strategy"), ("wire", "wire"),
               ("pod_ratio", "pod_ratio"),
               ("pod_mass_target", "pod_mass_target"),
               ("pod_k_max_ratio", "pod_k_max_ratio"),
-              ("byte_budget", "byte_budget"), ("repack", "repack"))
+              ("byte_budget", "byte_budget"), ("repack", "repack"),
+              ("overlap", "overlap"))
+# --overlap's values: SyncConfig.overlap
+_OVERLAP = {"auto": None, "on": True, "off": False}
 
 
 def _sync_from_args(ap, args) -> SyncConfig:
@@ -593,15 +596,15 @@ def _sync_from_args(ap, args) -> SyncConfig:
     ``_sync_from_args`` does. ``--pod-refresh-every`` implies the bucketed
     path."""
     bucketed = args.bucketed or args.pod_refresh_every > 0
+    fields = {field: getattr(args, flag) for flag, field in _OVERRIDES}
+    fields["overlap"] = _OVERLAP[args.overlap]
     if args.preset is not None:
-        overrides = {field: getattr(args, flag) for flag, field in _OVERRIDES
+        overrides = {field: fields[field] for flag, field in _OVERRIDES
                      if getattr(args, flag) != ap.get_default(flag)}
         if bucketed:
             overrides["bucketed"] = True
         return SyncConfig.preset(args.preset, **overrides)
-    return SyncConfig(bucketed=bucketed,
-                      **{field: getattr(args, flag)
-                         for flag, field in _OVERRIDES})
+    return SyncConfig(bucketed=bucketed, **fields)
 
 
 def _join_workers(platform: str) -> bool:
@@ -638,7 +641,7 @@ def main(argv=None):
             --platform cpu --preset topk --ratio 0.02
         torchrun --nproc_per_node 4 -m repro_torch.launch.train \
             --platform cpu --pods 2 --strategy hierarchical --bucketed \
-            --wire packed --pod-refresh-every 2
+            --wire packed --pod-refresh-every 2 [--overlap on]
 
     Each worker trains on its slice of the global ``--batch``; only rank
     0 prints.
@@ -701,6 +704,14 @@ def main(argv=None):
     ap.add_argument("--wire", default="unpacked",
                     choices=("unpacked", "packed"),
                     help="sync wire format (repro_torch.core.encoding)")
+    ap.add_argument("--overlap", default="auto", choices=tuple(_OVERLAP),
+                    help="the bucket pipeline's schedule "
+                         "(repro_torch.core.pipeline): 'on' double-buffers, "
+                         "bucket b's all-gather in flight while bucket b+1 "
+                         "selects and encodes; 'off' pins the strict "
+                         "sequential schedule; 'auto' keeps the plain "
+                         "bucket-after-bucket emission. Params and memory "
+                         "are bitwise identical in all modes")
     ap.add_argument("--batch", type=int, default=8,
                     help="global batch, split over the workers")
     ap.add_argument("--seq", type=int, default=128)

@@ -7,6 +7,7 @@ They import nothing of JAX, so they run where the card is:
 Each test decides inside itself whether a CUDA device is present and
 skips where there is none.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -901,6 +902,57 @@ def test_two_level_sync_on_the_card_matches_the_cpu(tmp_path, value_dtype,
     assert out["cpu"][1:] == out["cuda"][1:]
     for a, b in zip(out["cpu"][0], out["cuda"][0]):
         assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))
+
+
+def test_overlap_modes_on_the_card_match_the_cpu(tmp_path):
+    """The bucket pipeline on the card: a 2-bucket two-level sync
+    (runtime pod k, the repack boundary, packed wire) over a (1, 1) gloo
+    layout, two chained steps across a live-k switch (5 -> 3), at overlap
+    None, False and True on the card and on the CPU: every run's updates,
+    memory and realized bytes bit for bit the CPU's overlap None run."""
+    _need_card()
+    import torch.distributed as dist
+
+    from repro_torch.core import buckets as bk
+    from repro_torch.core.distributed import bucketed_sync_gradients
+    from repro_torch.launch.mesh import make_layout
+
+    rng = np.random.default_rng(6)
+    grads = {"w": torch.from_numpy(rng.standard_normal((300, 700)).astype(
+        np.float32)), "b": torch.from_numpy(rng.standard_normal(90).astype(
+            np.float32))}
+    plan = bk.make_plan(grads, cols=1024, dense_below=100)
+    mem0 = [torch.from_numpy(rng.standard_normal(s.shape).astype(np.float32))
+            for s in plan.buckets]
+    cfg = SyncConfig.preset("pod_budgeted", ratio=0.02, pod_axis="pod")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        layout = make_layout(1, 1)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            for overlap in (None, False, True):
+                c = dataclasses.replace(cfg, overlap=overlap)
+                mem, got = [m.to(dev) for m in mem0], []
+                for k in (5, 3):
+                    level = {"intra": 0, "cross": 0}
+                    ks = tuple(k if s.kind == "sparse" else 1
+                               for s in plan.buckets)
+                    upd, mem, nbytes = bucketed_sync_gradients(
+                        c, plan, mem, tree_map(lambda t: t.to(dev), grads),
+                        0.3, layout=layout, pod_ks=ks, level_bytes=level)
+                    got.append((tree_leaves(upd), nbytes, level))
+                out[dev, overlap] = (
+                    [t.cpu() for u, _, _ in got for t in u]
+                    + [t.cpu() for t in mem], [g[1:] for g in got])
+    finally:
+        dist.destroy_process_group()
+    want_t, want_bytes = out["cpu", None]
+    for key, (ts, nbytes) in out.items():
+        assert nbytes == want_bytes, key
+        assert len(ts) == len(want_t)
+        for a, b in zip(ts, want_t):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), key
 
 
 def _bf16_rows(kind, seed=31):

@@ -24,7 +24,9 @@ from repro.core.distributed import SyncConfig as RefSyncConfig
 from repro.core.distributed import autotune_pod_ratios as ref_autotune
 from repro.core.distributed import bucketed_message_bytes as ref_bucket_bytes
 from repro.core.distributed import message_bytes as ref_message_bytes
+from repro.core.distributed import repack_transport as ref_transport
 from repro.core.distributed import validate_pod_ratios as ref_validate_ratios
+from repro.core.pipeline import EmulatedLink as RefLink
 from repro.kernels.topk_select import mask_live_k as ref_mask_live_k
 from repro_torch.configs import MESHES, PodRefreshConfig
 from repro_torch.core import buckets as bk
@@ -38,6 +40,7 @@ from repro_torch.core.distributed import (
     repack_transport,
     validate_pod_ratios,
 )
+from repro_torch.core.pipeline import EmulatedLink
 from repro_torch.kernels.ref import row_topk_ref
 from repro_torch.kernels.topk_select import mask_live_k
 
@@ -286,8 +289,15 @@ def test_repack_round_trip_is_bitwise_and_matches_reference(value_dtype,
     assert rsmall_spec.k == small_spec.k
     np.testing.assert_array_equal(small.view(torch.int32).numpy(),
                                   np.asarray(rsmall).view(np.int32))
-    with pytest.raises(NotImplementedError, match="link"):
-        repack_transport(spec, buf, link=object())
+    # the link= form: the compacted message over an emulated link, repadded
+    # on .result(), bitwise the padded buffer; its bytes the reference's
+    fut, nb_link = repack_transport(spec, buf, link=EmulatedLink())
+    rfut, rnb = ref_transport(rspec, jnp.asarray(
+        buf.view(torch.int32).numpy()).view(jnp.uint32), link=RefLink())
+    assert nb_link == rnb == want
+    assert torch.equal(fut.result().view(torch.int32), buf.view(torch.int32))
+    np.testing.assert_array_equal(np.asarray(rfut.result()).view(np.int32),
+                                  buf.view(torch.int32).numpy())
 
 
 # -- the byte accounting by level -----------------------------------------

@@ -8,10 +8,13 @@ Each rank runs every sync case on its own inputs (made with numpy from a
 seed and the rank; rank = pod * 2 + data): the bucketed path with a
 static ``pod_ratio``, with per-bucket ``pod_ratios`` and with the runtime
 pod k (``pod_dynamic``, live ks below k_max, the repack boundary), and the
-per-leaf path with a static pod k, each on both wires; then two
+per-leaf path with a static pod k, each on both wires and at overlap
+None, False and True; the bucket pipeline's self-checks on the layout
+(``overlap_selfcheck`` on both wires, ``repack_selfcheck``); then three
 ``train()`` runs of rwkv6-3b's smoke config on the ``pod_budgeted``
 preset at a byte budget, one water-filling its pod ks again every 2
-steps and one replaying the first's schedule; the pod-ratio
+steps, one replaying the first's schedule and one repeating the first
+with overlap on; the pod-ratio
 calibration (``PodRatioCalibrator``) at (2, 2) and (4, 1); then the
 4-rank ``main([... "--pods", "2", "--strategy", "hierarchical",
 ...])``. The tests compare:
@@ -30,11 +33,17 @@ calibration (``PodRatioCalibrator``) at (2, 2) and (4, 1); then the
   equal to the reference's ``PodRatioCalibrator`` and allocation on the
   same global batch and memories;
 * the CLI's step-0 loss (the mean of the ranks' quarter-batch losses)
-  against the reference's full-batch loss within rtol 1e-5.
+  against the reference's full-batch loss within rtol 1e-5;
+* invariant 10: overlap False and True give overlap None's update,
+  memory and bytes bit for bit on every case, and the overlap-on refresh
+  run the refresh run's params and memory; the overlap=True sync against
+  the reference's traced at overlap=True; every self-check flag True,
+  and the repack check's bytes the reference's accounting.
 
 At (2, 2) each cross-worker sum has two terms, so the pod means are the
 reference's bits up to ``u``'s FMA.
 """
+import itertools
 import os
 import warnings
 
@@ -78,6 +87,9 @@ CASES = ([("bucketed", mode, wire) for mode in MODES
 BF16_CASES = [(path, mode, wire) for path, mode in (
     ("bucketed", "static"), ("bucketed", "dynamic"), ("per-leaf", "static"))
     for wire in ("unpacked", "packed")]
+# every case also runs at SyncConfig.overlap False and True (the bucket
+# pipeline's depth 1 and 2); None is the key without an overlap
+OVERLAPS = (None, False, True)
 ARCH = "rwkv6-3b"
 TRAIN = dict(batch=4, seq=32, steps=5, eta=0.3)
 TRAIN_RATIO = 0.02
@@ -129,11 +141,11 @@ def _inputs(path, rank):
             for s in plan.buckets], grads
 
 
-def _cfg(path, mode, wire, vd="float32"):
+def _cfg(path, mode, wire, vd="float32", overlap=None):
     from repro_torch.core.distributed import SyncConfig
 
     return SyncConfig(bucketed=path == "bucketed", wire=wire, **BASE,
-                      **MODES[mode], value_dtype=vd)
+                      **MODES[mode], value_dtype=vd, overlap=overlap)
 
 
 def _train_runs(layout):
@@ -163,9 +175,13 @@ def _train_runs(layout):
     budget = cross([5 if s.kind == "sparse" else 1 for s in plan.buckets])
     sync = dataclasses.replace(preset, byte_budget=budget)
     out = {"budget": budget}
-    for run in ("refresh", "replay"):
-        tc = TrainConfig(eta=TRAIN["eta"], sync=sync, pod_refresh=(
-            PodRefreshConfig(every=2) if run == "refresh" else None))
+    for run in ("refresh", "replay", "refresh overlap"):
+        # "refresh overlap": the refresh run with the bucket pipeline's
+        # double buffer
+        tc = TrainConfig(eta=TRAIN["eta"], sync=dataclasses.replace(
+            sync, overlap=True if run == "refresh overlap" else None),
+            pod_refresh=(PodRefreshConfig(every=2) if run != "replay"
+                         else None))
         batches = ShardedBatcher(token_batches(
             model.cfg.vocab_size, TRAIN["batch"], TRAIN["seq"], seed=3),
             "cpu")
@@ -290,6 +306,8 @@ def _worker(rank, tmp):
     from repro_torch.core import buckets as bk
     from repro_torch.core.distributed import (bucketed_sync_gradients,
                                               sparse_sync_gradients)
+    from repro_torch.core.selfcheck import (overlap_selfcheck,
+                                            repack_selfcheck)
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.mesh import make_layout, n_chips, pod_axis_of
 
@@ -301,12 +319,12 @@ def _worker(rank, tmp):
         layout = make_layout(PODS)
         out["layout"] = (layout.pod, layout.data, n_chips(layout),
                          pod_axis_of(layout))
-        for path, mode, wire, vd in (
+        for (path, mode, wire, vd), overlap in itertools.product(
                 [c + ("float32",) for c in CASES]
-                + [c + ("bfloat16",) for c in BF16_CASES]):
+                + [c + ("bfloat16",) for c in BF16_CASES], OVERLAPS):
             mem_np, grads_np = _inputs(path, rank)
             grads = params_from_jax(grads_np)
-            cfg = _cfg(path, mode, wire, vd)
+            cfg = _cfg(path, mode, wire, vd, overlap)
             level = {"intra": 0, "cross": 0}
             if path == "bucketed":
                 plan = bk.make_plan(grads, cols=COLS)
@@ -320,8 +338,12 @@ def _worker(rank, tmp):
                     cfg, params_from_jax(mem_np), grads, ETA, COL_AXES,
                     layout=layout)
                 mem = tree_leaves(mem)
-            key = (path, mode, wire) + ((vd,) if vd != "float32" else ())
+            key = ((path, mode, wire) + ((vd,) if vd != "float32" else ())
+                   + (("overlap", overlap) if overlap is not None else ()))
             out[key] = (tree_leaves(upd), mem, nbytes, level)
+        out["selfchecks"] = (overlap_selfcheck(layout),
+                             overlap_selfcheck(layout, wire="unpacked"),
+                             repack_selfcheck(layout))
         out["train"] = _train_runs(layout)
         out["calibration"] = _calibrations(rank, out["train"]["budget"])
         get = configs.get_smoke_config  # float32 compute for the parity
@@ -347,23 +369,25 @@ def runs(tmp_path_factory):
             for r in range(W)]
 
 
-def _rcfg(path, mode, wire="packed", vd="float32"):
+def _rcfg(path, mode, wire="packed", vd="float32", overlap=None):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
         return RefSyncConfig(bucketed=path == "bucketed", wire=wire,
-                             **BASE, **MODES[mode], value_dtype=vd)
+                             **BASE, **MODES[mode], value_dtype=vd,
+                             overlap=overlap)
 
 
 _REF = {}
 
 
-def _reference(path, mode, vd="float32"):
+def _reference(path, mode, vd="float32", overlap=None):
     """The reference's (2, 2) sync under nested vmap over ("pod", "data")
-    on the packed wire (its packed and unpacked wires give the same bits):
-    (update leaves, memory leaves), each with leading (pod, data) axes."""
-    if (path, mode, vd) in _REF:
-        return _REF[path, mode, vd]
-    rcfg = _rcfg(path, mode, vd=vd)
+    on the packed wire (its packed and unpacked wires give the same bits),
+    at ``overlap``: (update leaves, memory leaves), each with leading
+    (pod, data) axes."""
+    if (path, mode, vd, overlap) in _REF:
+        return _REF[path, mode, vd, overlap]
+    rcfg = _rcfg(path, mode, vd=vd, overlap=overlap)
     mems, grads = zip(*(_inputs(path, r) for r in range(W)))
 
     def stack(*xs):
@@ -386,9 +410,10 @@ def _reference(path, mode, vd="float32"):
             return ref_leaf(rcfg, m, g, jnp.float32(ETA), COL_AXES)[:2]
     upd, mem = jax.jit(jax.vmap(jax.vmap(fn, axis_name="data"),
                                 axis_name="pod"))(m, g)
-    _REF[path, mode, vd] = ([np.asarray(x) for x in jax.tree.leaves(upd)],
-                            [np.asarray(x) for x in jax.tree.leaves(mem)])
-    return _REF[path, mode, vd]
+    _REF[path, mode, vd, overlap] = (
+        [np.asarray(x) for x in jax.tree.leaves(upd)],
+        [np.asarray(x) for x in jax.tree.leaves(mem)])
+    return _REF[path, mode, vd, overlap]
 
 
 def _ref_bytes(path, mode, wire, vd="float32", **kw):
@@ -534,6 +559,82 @@ def test_mass_is_conserved(runs, path, mode):
     mean_u = np.mean(us, axis=0)
     err = np.max(np.abs(mean_u - (upd + np.mean(mems, axis=0))))
     assert err <= 1e-6 * np.max(np.abs(mean_u)), err
+
+
+@pytest.mark.parametrize("case", CASES + [c + ("bfloat16",)
+                                          for c in BF16_CASES])
+def test_overlap_modes_are_bitwise_equal_at_four_workers(runs, case):
+    """Overlap False and True give overlap None's update, memory, bytes
+    and bytes by level bit for bit on every rank: the static pod k, the
+    per-bucket ratios, the runtime pod k through the repack boundary
+    (its R stage in the chain) and the per-leaf chain, both wires,
+    float32 and bf16 wire values."""
+    for r in runs:
+        upd, mem, nbytes, level = r[case]
+        for overlap in (False, True):
+            o_upd, o_mem, o_nbytes, o_level = r[case + ("overlap", overlap)]
+            assert (o_nbytes, o_level) == (nbytes, level)
+            assert len(o_upd + o_mem) == len(upd + mem)
+            for a, b in zip(o_upd + o_mem, upd + mem):
+                assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("path,mode", sorted({c[:2] for c in CASES}))
+def test_overlap_on_matches_reference_at_four_workers(runs, path, mode):
+    """The port's overlap=True two-level sync on the packed wire against
+    the reference's traced at overlap=True under the same nested vmap
+    (its double-buffered schedule): the support exactly, update and
+    memory within 1e-6."""
+    r_upd, r_mem = _reference(path, mode, overlap=True)
+    for rank, r in enumerate(runs):
+        p, d = divmod(rank, DATA)
+        upd, mem, _, _ = r[(path, mode, "packed", "overlap", True)]
+        assert len(upd) == len(r_upd) and len(mem) == len(r_mem)
+        for a, b in zip(upd, r_upd):
+            a, b = a.numpy(), b[p, d]
+            np.testing.assert_array_equal(a != 0, b != 0)
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+        for a, b in zip(mem, r_mem):
+            np.testing.assert_allclose(a.numpy(), b[p, d], rtol=0,
+                                       atol=1e-6)
+
+
+def test_selfchecks_hold_on_the_four_rank_layout(runs):
+    """The port's ``overlap_selfcheck`` (both wires) and
+    ``repack_selfcheck`` on the (2, 2) layout: every flag True on every
+    rank; the repack check's (padded, live) cross-pod bytes those of the
+    reference's accounting at n_data 2 (its selfchecks are not run: they
+    are 8-device subprocesses)."""
+    from repro.core import encoding as renc
+
+    for r in runs:
+        ov_packed, ov_unpacked, rp = r["selfchecks"]
+        for ov in (ov_packed, ov_unpacked):
+            assert ov == {"flat_bitwise": True, "hierarchical_bitwise": True,
+                          "pod_dynamic_bitwise": True, "bitwise_all": True}
+        assert rp["repack_bitwise"] and rp["transport_roundtrip_bitwise"]
+        assert rp["transport_accounting_exact"]
+        # the probe's sparse bucket: (48, 128), k_row 6, pod k 9, k_max
+        # the support bound n_data * k_row = 12; the live k 4
+        rcfg = RefSyncConfig(ratio=0.05, strategy="hierarchical",
+                             pod_axis="pod", bucketed=True, bucket_cols=128,
+                             wire="packed", pod_ratios=(1.0, 9 / 128),
+                             pod_dynamic=True, _warn=False)
+        k_max = rcfg.pod_k_max_for_bucket(1, 128, DATA)
+        assert rp["padded_vs_live_bytes"] == [
+            renc.WireSpec(48, 128, k_max).nbytes,
+            renc.message_nbytes(48, 128, 4, "float32", "packed")]
+
+
+def test_refresh_run_with_overlap_on_is_bitwise_the_refresh_run(runs):
+    """The pod_budgeted refresh run through ``train()`` with the double
+    buffer (its pod ks refreshed every 2 steps: live-k switches, the
+    repack boundary) gives the refresh run's params and memory bit for
+    bit on every rank."""
+    for r in runs:
+        t = r["train"]
+        for a, b in zip(t["refresh overlap"], t["refresh"]):
+            assert torch.equal(_bits(a), _bits(b))
 
 
 def test_constant_live_k_equals_static_bitwise(runs):

@@ -135,15 +135,18 @@ def test_message_bytes_match_reference():
 @pytest.mark.parametrize("change,name", [
     # the ids of the cases kept from before the packed wire was ported
     # the two-level chain runs since the pod sync was ported, at bf16 wire
-    # values too since the bf16 row top-k kernels were: it still refuses
-    # the bucket pipeline by name
+    # values too since the bf16 row top-k kernels were, and at every
+    # overlap since the bucket pipeline was: it still refuses the quantized
+    # wire by name
     pytest.param(dict(strategy="hierarchical", pod_axis="pod",
-                      value_dtype="bfloat16", overlap=True), "overlap",
-                 id="change0-hierarchical"),
+                      value_dtype="bfloat16", overlap=True, quant=15),
+                 "quant", id="change0-hierarchical"),
     pytest.param(dict(quant=15), "quant", id="change2-quant"),
     pytest.param(dict(local_steps=4), "local_steps",
                  id="change3-local_steps"),
-    pytest.param(dict(overlap=True), "overlap", id="change4-overlap"),
+    # the bucket pipeline runs: with it on, local steps are still refused
+    pytest.param(dict(overlap=True, local_steps=4), "local_steps",
+                 id="change4-overlap"),
 ])
 def test_unported_options_raise_by_name(change, name):
     cfg = dataclasses.replace(SyncConfig(bucketed=True), **change)
@@ -229,17 +232,17 @@ def test_presets_match_reference(name, overrides):
 @pytest.mark.parametrize("name,overrides,words", [
     pytest.param("qsparse_local", {}, "local steps",
                  id="qsparse_local-local steps"),
-    # pod_budgeted is ported, at bf16 wire values too; its bucket pipeline
-    # is not
+    # pod_budgeted is ported, at bf16 wire values and every overlap too;
+    # the quantized wire on it is not
     pytest.param("pod_budgeted", dict(pod_axis="pod", value_dtype="bfloat16",
-                                      overlap=True),
-                 "overlap", id="pod_budgeted-hierarchical")])
+                                      overlap=True, quant=15),
+                 "quant", id="pod_budgeted-hierarchical")])
 def test_unported_presets_raise_by_name(name, overrides, words):
     RefSyncConfig.preset(name)  # the reference has it
     with pytest.raises(NotImplementedError, match=words):
         SyncConfig.preset(name, **overrides).validate()
-    if name == "pod_budgeted":  # without the pipeline it validates at bf16
-        overrides = {k: v for k, v in overrides.items() if k != "overlap"}
+    if name == "pod_budgeted":  # without quant it validates, overlap on
+        overrides = {k: v for k, v in overrides.items() if k != "quant"}
         SyncConfig.preset(name, **overrides).validate()
     with pytest.raises(ValueError, match="unknown SyncConfig preset"):
         SyncConfig.preset("bogus")

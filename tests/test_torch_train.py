@@ -410,8 +410,8 @@ def test_cuda_without_a_gpu_raises():
 
 
 @pytest.mark.parametrize("tc,err", [
-    (TrainConfig(sync=SyncConfig(overlap=True)),
-     NotImplementedError),  # the bucket pipeline (overlap schedule)
+    (TrainConfig(sync=SyncConfig(overlap=True, local_steps=4)),
+     NotImplementedError),  # local steps (the bucket pipeline runs)
     (TrainConfig(sync=SyncConfig(bucketed=True, wire="packed", quant=4)),
      NotImplementedError),  # the quant wire (QSGD levels)
     (TrainConfig(optimizer="sgd", sync=SyncConfig(bucketed=True)),
@@ -579,6 +579,10 @@ def test_cli_arch_reaches_every_ported_arch(arch):
     (["--preset", "pod_budgeted", "--byte-budget", "185587",
       "--pod-mass-target", "0.8"], "pod_budgeted",
      dict(byte_budget=185587, pod_mass_target=0.8)),
+    (["--preset", "topk", "--overlap", "on"], "topk", dict(overlap=True)),
+    (["--preset", "pod_budgeted", "--overlap", "off"], "pod_budgeted",
+     dict(overlap=False)),
+    (["--preset", "topk", "--overlap", "auto"], "topk", {}),
 ])
 def test_cli_preset_matches_reference(argv, name, overrides):
     """Explicit flags override the preset's fields, as the reference's
@@ -588,7 +592,7 @@ def test_cli_preset_matches_reference(argv, name, overrides):
     for field in ("strategy", "ratio", "bucketed", "wire", "value_dtype",
                   "k_min", "k_max", "local_steps", "quant", "pod_ratio",
                   "pod_mass_target", "pod_dynamic", "pod_k_max_ratio",
-                  "repack", "byte_budget"):
+                  "repack", "byte_budget", "overlap"):
         assert getattr(got, field) == getattr(want, field), field
 
 
@@ -612,7 +616,9 @@ def test_sharded_batcher_gives_each_rank_its_slice():
 
     batches = list(take(token_batches(512, 4, 8, seed=0), 2))
     for rank in range(2):
-        got = list(ShardedBatcher(iter(batches), "cpu", rank=rank, world=2))
+        # iter(): the batcher itself refuses list(), as the reference's
+        got = list(iter(ShardedBatcher(iter(batches), "cpu", rank=rank,
+                                       world=2)))
         for b, full in zip(got, batches):
             for k, v in full.items():
                 np.testing.assert_array_equal(

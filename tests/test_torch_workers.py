@@ -4,9 +4,10 @@ against the reference's at W = 2, which runs in-process under
 
 The two gloo processes start once for this file (the ``runs`` fixture):
 each rank runs both sync paths x both wires x float32/bf16 wire values on
-its own inputs (made with numpy from a seed and the rank), then a 2-rank
-``main(["--preset", "topk", "--platform", "cpu", ...])`` on the smoke
-config, and saves what it got. The tests compare:
+its own inputs (made with numpy from a seed and the rank), at overlap
+None, False and True, then a 2-rank ``main(["--preset", "topk",
+"--platform", "cpu", ...])`` on the smoke config at ``--overlap`` auto,
+on and off, and saves what it got. The tests compare:
 
 * the update's support exactly, update and memory within 1e-6 (the
   reference's FMA allowance on ``m + eta*g``), bytes equal;
@@ -14,8 +15,14 @@ config, and saves what it got. The tests compare:
 * the CLI's step-0 loss (the mean of the ranks' half-batch losses)
   against the reference's full-batch loss within rtol 1e-5 (the
   tolerance of ``test_torch_train.py``, float32 compute), and params
-  bit-identical across the ranks after the run.
+  bit-identical across the ranks after the run;
+* the bucket pipeline: every case at ``overlap`` False and True bit for
+  bit overlap None's (update, memory, bytes); the overlap=True sync on
+  the packed wire against the reference's traced at overlap=True under
+  the same vmap; the CLI at ``--overlap on`` and ``off`` with the losses
+  and params of ``--overlap auto``.
 """
+import itertools
 import os
 
 import jax
@@ -43,6 +50,9 @@ COL_AXES = {"w1": 0, "w2": 1, "blk": {"z": 1, "v": None}, "b": None,
 CASES = [(path, wire, vd) for path in ("bucketed", "per-leaf")
          for wire in ("unpacked", "packed")
          for vd in ("float32", "bfloat16")]
+# every case also runs at SyncConfig.overlap False and True (the bucket
+# pipeline's depth 1 and 2); None is the key without an overlap
+OVERLAPS = (None, False, True)
 MAIN_ARGS = ["--preset", "topk", "--platform", "cpu", "--steps", "2",
              "--batch", "4", "--seq", "32"]
 
@@ -72,11 +82,12 @@ def _inputs(path, rank):
             for s in plan.buckets], grads
 
 
-def _cfg(path, wire, vd):
+def _cfg(path, wire, vd, overlap=None):
     from repro_torch.core.distributed import SyncConfig
 
     return SyncConfig(ratio=0.02, bucketed=path == "bucketed",
-                      bucket_cols=COLS, wire=wire, value_dtype=vd)
+                      bucket_cols=COLS, wire=wire, value_dtype=vd,
+                      overlap=overlap)
 
 
 def _worker(rank, tmp):
@@ -97,10 +108,10 @@ def _worker(rank, tmp):
                             rank=rank, world_size=W)
     out = {}
     try:
-        for path, wire, vd in CASES:
+        for (path, wire, vd), overlap in itertools.product(CASES, OVERLAPS):
             mem_np, grads_np = _inputs(path, rank)
             grads = params_from_jax(grads_np)
-            cfg = _cfg(path, wire, vd)
+            cfg = _cfg(path, wire, vd, overlap)
             if path == "bucketed":
                 plan = bk.make_plan(grads, cols=COLS)
                 upd, mem, nbytes = bucketed_sync_gradients(
@@ -111,14 +122,19 @@ def _worker(rank, tmp):
                 upd, mem, nbytes = sparse_sync_gradients(
                     cfg, params_from_jax(mem_np), grads, ETA, COL_AXES)
                 mem = tree_leaves(mem)
-            out[(path, wire, vd)] = (tree_leaves(upd), mem, nbytes)
+            key = (path, wire, vd) + ((overlap,) if overlap is not None
+                                      else ())
+            out[key] = (tree_leaves(upd), mem, nbytes)
         get = configs.get_smoke_config  # float32 compute for the parity
         configs.get_smoke_config = lambda arch: get(arch).replace(
             compute_dtype="float32")
-        text = io.StringIO()
-        with redirect_stdout(text):
-            params, memory, _, count, history = train_mod.main(MAIN_ARGS)
-        out["main"] = (tree_leaves(params), history, count, text.getvalue())
+        for flag in ("auto", "on", "off"):
+            text = io.StringIO()
+            with redirect_stdout(text):
+                params, memory, _, count, history = train_mod.main(
+                    MAIN_ARGS + ["--overlap", flag])
+            out["main" if flag == "auto" else ("main", flag)] = (
+                tree_leaves(params), history, count, text.getvalue())
     finally:
         dist.destroy_process_group()
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
@@ -135,13 +151,14 @@ def runs(tmp_path_factory):
             for r in range(W)]
 
 
-def _reference(path, wire, vd):
-    """The reference's W = 2 sync under vmap over the worker axis:
-    (update leaves per worker, memory leaves per worker, bytes)."""
+def _reference(path, wire, vd, overlap=None):
+    """The reference's W = 2 sync under vmap over the worker axis, at
+    ``overlap``: (update leaves per worker, memory leaves per worker,
+    bytes)."""
     cfg = _cfg(path, wire, vd)
     rcfg = RefSyncConfig(ratio=cfg.ratio, bucketed=cfg.bucketed,
                          bucket_cols=COLS, wire=wire, value_dtype=vd,
-                         _warn=False)
+                         overlap=overlap, _warn=False)
     mems, grads = zip(*(_inputs(path, r) for r in range(W)))
     stack = lambda *xs: jnp.stack([jnp.asarray(x) for x in xs])  # noqa
     g = jax.tree.map(stack, *grads)
@@ -165,11 +182,13 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.int32)
 
 
-@pytest.mark.parametrize("path,wire,vd", CASES)
-def test_sync_matches_reference_at_two_workers(runs, path, wire, vd):
-    r_upd, r_mem, r_nbytes = _reference(path, wire, vd)
+def _assert_matches_reference(runs, key, ref):
+    """Every rank's (update, memory, bytes) of ``key`` against the
+    reference's: the update's support exactly, update and memory within
+    1e-6, bytes equal."""
+    r_upd, r_mem, r_nbytes = ref
     for rank in range(W):
-        upd, mem, nbytes = runs[rank][(path, wire, vd)]
+        upd, mem, nbytes = runs[rank][key]
         assert nbytes == r_nbytes
         assert len(upd) == len(r_upd) and len(mem) == len(r_mem)
         for a, b in zip(upd, r_upd):
@@ -178,6 +197,50 @@ def test_sync_matches_reference_at_two_workers(runs, path, wire, vd):
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
         for a, b in zip(mem, r_mem):
             np.testing.assert_allclose(a.numpy(), b[rank], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("path,wire,vd", CASES)
+def test_sync_matches_reference_at_two_workers(runs, path, wire, vd):
+    _assert_matches_reference(runs, (path, wire, vd),
+                              _reference(path, wire, vd))
+
+
+@pytest.mark.parametrize("path,wire,vd", CASES)
+def test_overlap_modes_are_bitwise_equal_at_two_workers(runs, path, wire,
+                                                        vd):
+    """Overlap False (depth 1) and True (the double buffer, each bucket's
+    gather in flight while the next selects) give overlap None's update,
+    memory and bytes bit for bit, on both ranks."""
+    for rank in range(W):
+        upd, mem, nbytes = runs[rank][(path, wire, vd)]
+        for overlap in (False, True):
+            o_upd, o_mem, o_nbytes = runs[rank][(path, wire, vd, overlap)]
+            assert o_nbytes == nbytes and len(o_upd + o_mem) == len(upd + mem)
+            for a, b in zip(o_upd + o_mem, upd + mem):
+                assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("path,vd", [(p, v) for p in ("bucketed", "per-leaf")
+                                     for v in ("float32", "bfloat16")])
+def test_overlap_on_matches_reference_at_two_workers(runs, path, vd):
+    """The port's overlap=True sync against the reference's traced at
+    overlap=True under jax.vmap (its double-buffered schedule with
+    optimization barriers), on the packed wire (packed == unpacked is
+    held bit for bit above)."""
+    _assert_matches_reference(runs, (path, "packed", vd, True),
+                              _reference(path, "packed", vd, overlap=True))
+
+
+@pytest.mark.parametrize("flag", ["on", "off"])
+def test_two_rank_main_overlap_gives_the_auto_losses(runs, flag):
+    """``main([..., "--overlap", flag])`` on two ranks: the same losses
+    as ``--overlap auto`` and the same params bit for bit."""
+    p_auto, h_auto, c_auto, _ = runs[0]["main"]
+    for r in runs:
+        params, history, count, _ = r["main", flag]
+        assert count == c_auto and history == h_auto
+        for a, b in zip(params, p_auto):
+            assert torch.equal(_bits(a), _bits(b))
 
 
 @pytest.mark.parametrize("path", ["bucketed", "per-leaf"])
