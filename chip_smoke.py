@@ -207,6 +207,32 @@ Phases, each of which fails the run with a non-zero exit:
    timed) + the packed encode, decode + densify, the link's latency the
    measured encode + decode time; depth 1 against depth 2, outputs
    bitwise equal, wall ms of each (3 rounds in turns), 8 launches a run.
+17. Qsparse-local-SGD (after the topk preset path): qwen3-4b at full width
+   (4 layers) on ``SyncConfig.preset("qsparse_local", ratio=0.01)`` (H = 4
+   local steps, s = 15 levels, the packed wire, k = 10) in a 1-rank NCCL
+   group, QSPARSE_STEPS steps through ``train()`` (two sync rounds): its
+   bytes a sync and a step the reference's accounting, below the topk
+   preset's at the same ratio, and the telemetry's bytes a step the
+   amortized ones; each step call's launches read around it: a local step
+   launches nothing, a sync step the fused kernel once; the losses finite
+   from near ln V and the second round's mean below the first's; the
+   local and sync steps' ms (the drain clock, and a round with each step
+   call synchronized), a profiled round's device busy time, the peak. Then H = 1 through the accumulator
+   (``buckets.accumulate_local``, the sync of it through ``grad_bufs=`` at
+   eta 1.0) against the direct sync on the model's real gradients,
+   QSPARSE_H1_STEPS steps from one cloned init: params and memory bit for
+   bit (a sign-of-zero difference is located and reported). Then the
+   quantizer on the sync's (1154560, 10) selection: on uniforms drawn on
+   the CPU the card's norms, codes and dequantized values the CPU's bit
+   for bit; on the card's own ``QuantNoise`` the mean of deq - vals over
+   QSPARSE_DRAWS draws within 5 sigma of 0; the quantize and the
+   quantized encode timed beside the float32 encode. In the pod phase
+   (14), rwkv6-3b's two-level chain at POD_QUANT_H local steps and 15
+   levels, POD_QUANT_STEPS steps (params bitwise on every rank, one fused
+   and one re-select launch a sync step), a probe sync on its state (the
+   level-2 codes identical within each pod, each level's realized bytes
+   the accounting, mass conserved within 1e-5), then
+   ``local_quant_selfcheck`` on the (2, 2) layout: every flag True.
 
 Phase 3 runs the kernels at every architecture's shapes: the fused
 kernel at each bucket (qwen3-4b's, rwkv6-3b's, the two MoE configs',
@@ -246,6 +272,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+
+# the script builds configs with the flat SyncConfig keywords, which parse
+# into the grouped configs (their deprecation warning says so once each)
+import warnings  # noqa: E402
+
+warnings.filterwarnings("ignore", "flat SyncConfig keyword",
+                        DeprecationWarning)
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -372,6 +405,20 @@ OVERLAP_STEPS, OVERLAP_PROFILE = STEPS, 2
 # time, decoded (the densify); depth 1 against depth 2, HOST_ROUNDS timed
 # rounds each, in turns
 HOST_BUCKETS, HOST_SHAPE, HOST_K, HOST_ROUNDS = 8, (64, 2048), 64, 3
+# Qsparse-local-SGD (phase 17): qwen3-4b's bucketed path on the
+# qsparse_local preset (H = 4 local steps, s = 15 levels, the packed wire)
+# at ratio 0.01 (k = 10), QSPARSE_STEPS steps (two sync rounds) in a
+# 1-rank NCCL group; its bytes a sync and a step amortized, and the topk
+# preset's a step at the same ratio (the reference's accounting,
+# tests/test_torch_qsgd.py); H = 1 through the accumulator against the
+# direct sync for QSPARSE_H1_STEPS steps; the quantizer's unbiasedness
+# over QSPARSE_DRAWS draws
+QSPARSE_STEPS, QSPARSE_H1_STEPS, QSPARSE_DRAWS = 8, 3, 64
+QSPARSE_SYNC_BYTES, QSPARSE_STEP_BYTES = 32_423_968, 8_105_992
+TOPK_BYTES_AT_RATIO = 64_751_648
+# the pod phase's quantized run: rwkv6-3b's two-level chain at
+# POD_QUANT_H local steps and 15 levels, POD_QUANT_STEPS steps
+POD_QUANT_H, POD_QUANT_S, POD_QUANT_STEPS = 2, 15, 4
 # the per-leaf rows narrower than this are timed on their own
 NARROW_C = 1024
 KERNEL_SOURCES = ("fused_memsgd", "topk_select")
@@ -1394,6 +1441,360 @@ def phase_topk_preset(dev, arch=ARCH, n_layers=N_LAYERS,
         fail(f"{arch}: the packed and unpacked wires' losses differ: {losses}")
     print(f"{arch} topk preset path: the packed and unpacked wires' losses "
           "are identical")
+    return launches
+
+
+def qsparse_counted_steps(per_call: list):
+    """A ``make_train_step`` whose step and ``step.accum`` record the
+    launches each call made, ("sync" or "local", {kernel: n}), in
+    ``per_call``: the launch counts are host counters, read around each
+    call."""
+    from repro_torch.launch import train as train_mod
+
+    real = train_mod.make_train_step
+
+    def wrap(fn, kind):
+        def call(*args, **kwargs):
+            before = launch_counts()
+            out = fn(*args, **kwargs)
+            after = launch_counts()
+            per_call.append((kind, {n: after[n] - before[n] for n in after
+                                    if after[n] != before[n]}))
+            return out
+        return call
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+        counted = wrap(step, "sync")
+        for name in ("sync", "plan", "col_axes", "layout", "pod_k_max",
+                     "local_steps"):
+            setattr(counted, name, getattr(step, name))
+        counted.accum = wrap(step.accum, "local")
+        return counted
+
+    return real, make
+
+
+def qsparse_run(model, sync, dev, fused: str, per_step: float) -> dict:
+    """The qsparse_local run through ``train()`` (phase 17): QSPARSE_STEPS
+    steps from the seeded init, every launch count zeroed just before and
+    read just after, and each step call's launches read around it.
+    Returns the run's launches."""
+    from repro_torch.data import DeviceBatcher, token_batches
+    from repro_torch.launch import train as train_mod
+    from repro_torch.utils.tree import tree_leaves
+
+    H = sync.local_steps
+    V = model.cfg.vocab_size
+    params = model.init(seed=0, device=dev)
+    before = [p.clone() for p in tree_leaves(params)]
+    tel = step_clock()
+    per_call = []
+    real, counted = qsparse_counted_steps(per_call)
+    tc = train_mod.TrainConfig(optimizer="memsgd", eta=ETA, sync=sync)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    train_mod.make_train_step = counted
+    try:
+        params, memory, _, count, _ = train_mod.train(
+            model, tc, DeviceBatcher(token_batches(V, BATCH, SEQ, seed=0),
+                                     dev),
+            QSPARSE_STEPS, device=dev, params=params, log_every=1,
+            telemetry=tel)
+    finally:
+        train_mod.make_train_step = real
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = tel.losses
+    # times[i] - times[i - 1]: step i, drained once step i + 1 was issued
+    # (the last drain, after the loop, is left out)
+    ms = {"local": [], "sync": []}
+    for i in range(1, QSPARSE_STEPS - 1):
+        kind = "sync" if (i + 1) % H == 0 else "local"
+        ms[kind].append(round(1e3 * (tel.times[i] - tel.times[i - 1]), 2))
+    changed = sum(int((a != b).sum())
+                  for a, b in zip(before, tree_leaves(params)))
+    del before
+    rounds = [losses[j * H:(j + 1) * H] for j in range(QSPARSE_STEPS // H)]
+    means = [sum(r) / len(r) for r in rounds]
+    print(f"qsparse_local run: losses {losses} (round means {means}); "
+          f"drain clock ms, local steps {ms['local']}, sync steps "
+          f"{ms['sync']}; peak {peak / 2**30:.2f} GiB; launches {counts}; "
+          f"bytes a step {tel.bytes_per_step}; {changed} parameter entries "
+          "changed")
+    print(f"qsparse_local run: launches by step call {per_call}")
+    lnv = math.log(model.cfg.vocab_size)
+    if len(losses) != QSPARSE_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"qsparse_local: expected {QSPARSE_STEPS} finite losses, got "
+             f"{losses}")
+    if not lnv - 1 <= losses[0] <= lnv + 2:
+        fail(f"qsparse_local: first loss {losses[0]} outside [ln V - 1, "
+             f"ln V + 2]")
+    if not means[-1] < means[0]:
+        fail(f"qsparse_local: the loss did not fall: round means {means}")
+    want_calls = [("sync", {fused: 1}) if (i + 1) % H == 0 else ("local", {})
+                  for i in range(QSPARSE_STEPS)]
+    if per_call != want_calls:
+        fail(f"qsparse_local: launches by step call {per_call}, expected "
+             f"{want_calls} (a local step launches no kernel, a sync step "
+             "the fused kernel once)")
+    want = {n: QSPARSE_STEPS // H if n == fused else 0 for n in counts}
+    if counts != want or count != QSPARSE_STEPS or changed == 0:
+        fail(f"qsparse_local: launches {counts} (expected {want}), count "
+             f"{count}, {changed} entries changed")
+    if tel.bytes_per_step != {"total": per_step}:
+        fail(f"qsparse_local: telemetry bytes a step {tel.bytes_per_step}, "
+             f"expected {per_step}")
+    qsparse_profile(model, tc, params, memory, dev)
+    return counts
+
+
+def qsparse_profile(model, tc, params, memory, dev) -> None:
+    """After one warm round (H - 1 local steps and the sync step): a round
+    with each step call synchronized and timed on the host clock (local
+    and sync steps apart), then one under torch.profiler: wall and
+    device-busy ms a step, and the kernels that take the most (launches
+    here are not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import buckets as bk
+    from repro_torch.data import DeviceBatcher, token_batches
+    from repro_torch.launch.train import make_train_step
+
+    step = make_train_step(model, tc)
+    H = step.local_steps
+    acc = bk.init_local_accum(step.plan, device=dev)
+    it = iter(DeviceBatcher(token_batches(model.cfg.vocab_size, BATCH, SEQ,
+                                          seed=11), dev))
+    count, opt = QSPARSE_STEPS, ()
+
+    def one_round():
+        nonlocal params, memory, acc, opt, count
+        for h in range(H):
+            f = step if h == H - 1 else step.accum
+            params, memory, acc, opt, count, _ = f(params, memory, acc, opt,
+                                                   count, next(it))
+
+    one_round()
+    torch.cuda.synchronize()
+    # each step call timed on its own, synchronized before and after (the
+    # drain clock gives a step the issue time of the next one)
+    ms = {"local": [], "sync": []}
+    for h in range(H):
+        f = step if h == H - 1 else step.accum
+        t0 = time.perf_counter()
+        params, memory, acc, opt, count, _ = f(params, memory, acc, opt,
+                                               count, next(it))
+        torch.cuda.synchronize()
+        ms["sync" if h == H - 1 else "local"].append(
+            round(1e3 * (time.perf_counter() - t0), 2))
+    print(f"qsparse_local step ms, each synchronized: local {ms['local']}, "
+          f"sync {ms['sync']}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_round()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / H
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / H
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"qsparse_local profile: one round of {H} steps, wall "
+          f"{wall:.2f} ms/step, device busy {busy:.2f} ms/step "
+          f"({100 * busy / wall:.1f}% of wall, idle "
+          f"{100 * (1 - busy / wall):.1f}%)")
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3 / H:9.3f} ms/step "
+              f"x{e.count / H:<5g} {e.key[:150]}")
+
+
+def zero_sign_report(a: torch.Tensor, b: torch.Tensor) -> str:
+    """Where two tensors differ in their bits: how many entries, and how
+    many of those are +0.0 against -0.0."""
+    diff = a.view(torch.int32) != b.view(torch.int32)
+    zeros = diff & (a == 0) & (b == 0)
+    first = diff.nonzero()[:3].tolist()
+    return (f"{int(diff.sum())} entries differ, {int(zeros.sum())} of them "
+            f"+0.0 against -0.0; first at {first}")
+
+
+def qsparse_h1(model, plan, sync, dev):
+    """H = 1 through the accumulator against the direct sync (phase 17):
+    QSPARSE_H1_STEPS steps from one cloned init, each step's gradient
+    (of the direct path's params) synced twice: directly at eta, and
+    through ``init_local_accum`` + ``accumulate_local`` at eta and the
+    sync of the accumulator through ``grad_bufs=`` at eta 1.0, on the same
+    QuantNoise. Params and memory must stay bit for bit equal. Returns the
+    sparse bucket's next selection (values) for the quantizer check."""
+    from repro_torch.core import buckets as bk
+    from repro_torch.core.distributed import bucketed_sync_gradients
+    from repro_torch.data import DeviceBatcher, token_batches
+    from repro_torch.kernels import fused_memsgd_update
+    from repro_torch.launch.train import _grads
+    from repro_torch.optim.qsgd import QuantNoise
+    from repro_torch.utils.tree import tree_flatten, tree_leaves
+
+    cfg = dataclasses.replace(sync, local_steps=1)
+    leaves_d, treedef = tree_flatten(model.init(seed=0, device=dev))
+    leaves_a = [p.clone() for p in leaves_d]
+    mem_d = bk.init_bucket_memory(plan, device=dev)
+    mem_a = bk.init_bucket_memory(plan, device=dev)
+    it = iter(DeviceBatcher(token_batches(model.cfg.vocab_size, BATCH, SEQ,
+                                          seed=3), dev))
+    b = next(i for i, s in enumerate(plan.buckets) if s.kind == "sparse")
+    for i in range(QSPARSE_H1_STEPS + 1):
+        grads, _ = _grads(model, treedef.unflatten(leaves_d), next(it))
+        g_tree = treedef.unflatten(list(grads))
+        del grads
+        if i == QSPARSE_H1_STEPS:
+            g = bk.pack(plan, g_tree, dtype=torch.float32)[b]
+            _, vals, _ = fused_memsgd_update(mem_d[b], g, ETA,
+                                             cfg.k_for(cfg.bucket_cols))
+            return vals
+        noise = QuantNoise(0, i)
+        upd, mem_d, _ = bucketed_sync_gradients(cfg, plan, mem_d, g_tree,
+                                                ETA, quant_noise=noise)
+        with torch.no_grad():
+            for p, u in zip(leaves_d, tree_leaves(upd)):
+                p.sub_(u)
+        del upd
+        acc = bk.accumulate_local(
+            plan, bk.init_local_accum(plan, device=dev), g_tree, ETA)
+        del g_tree
+        upd, mem_a, _ = bucketed_sync_gradients(cfg, plan, mem_a, None, 1.0,
+                                                grad_bufs=acc,
+                                                quant_noise=noise)
+        del acc
+        with torch.no_grad():
+            for p, u in zip(leaves_a, tree_leaves(upd)):
+                p.sub_(u)
+        del upd
+        for name, xs, ys in (("params", leaves_d, leaves_a),
+                             ("memory", mem_d, mem_a)):
+            for j, (x, y) in enumerate(zip(xs, ys)):
+                if not same_bits(x, y):
+                    fail(f"H = 1 through the accumulator, step {i}: {name} "
+                         f"leaf {j} differs from the direct sync's: "
+                         f"{zero_sign_report(x, y)}")
+        print(f"H = 1 through the accumulator, step {i}: params and memory "
+              "bitwise the direct sync's")
+
+
+def qsparse_quantizer(vals: torch.Tensor, dev, s: int) -> None:
+    """The quantizer on the sync's (rows, k) selection (phase 17): card
+    against CPU on uniforms drawn on the CPU (norms, codes and dequantized
+    values bit for bit); unbiased on the card's own noise (the mean of deq
+    - vals over QSPARSE_DRAWS draws and every entry within 5 sigma of 0,
+    sigma from each entry's Bernoulli variance); the quantize, the
+    quantized encode and the float32 encode of the same pairs timed."""
+    from repro_torch.core import encoding as enc
+    from repro_torch.optim.qsgd import QuantNoise, quantize_rows
+
+    rows, k = vals.shape
+    u = QuantNoise(0, 0).uniforms(0, 1, 0, vals.shape, "cpu")
+    on_card = quantize_rows(vals, s, u.to(dev))
+    on_cpu = quantize_rows(vals.cpu(), s, u)
+    deq_card = enc.dequantize_rows(*on_card, s)
+    deq_cpu = enc.dequantize_rows(*on_cpu, s)
+    for name, a, b in (("norms", on_card[0], on_cpu[0]),
+                       ("codes", on_card[1], on_cpu[1]),
+                       ("dequantized values", deq_card, deq_cpu)):
+        if not same_bits(a.cpu(), b):
+            fail(f"quantizer: the card's {name} differ from the CPU's on "
+                 f"the same uniforms: {zero_sign_report(a.cpu(), b)}")
+    print(f"quantizer on the ({rows}, {k}) selection at s = {s}: norms, "
+          "codes and dequantized values on the card bitwise the CPU's on "
+          "CPU-drawn uniforms")
+    total = torch.zeros((), dtype=torch.float64, device=dev)
+    for i in range(QSPARSE_DRAWS):
+        norms, codes = quantize_rows(vals, s, QuantNoise(1, i).uniforms(
+            0, 1, 0, vals.shape, dev))
+        total += (enc.dequantize_rows(norms, codes, s).double()
+                  - vals.double()).sum()
+    norms = on_card[0].double().unsqueeze(-1)
+    r = vals.double().abs() / norms.clamp(min=1e-300) * s
+    p = r - torch.floor(r)
+    var = (norms / s) ** 2 * p * (1 - p)
+    sigma = math.sqrt(float(var.sum()) / QSPARSE_DRAWS)
+    z = float(total) / QSPARSE_DRAWS / max(sigma, 1e-300)
+    print(f"quantizer unbiased on the card's noise: the sum of deq - vals "
+          f"over {rows * k} entries, mean of {QSPARSE_DRAWS} draws, "
+          f"{float(total) / QSPARSE_DRAWS:.4g} = {z:.3f} sigma")
+    if not abs(z) < 5:
+        fail(f"quantizer: mean of deq - vals at {z:.2f} sigma from 0")
+    idx = torch.randint(0, 1024, vals.shape, dtype=torch.int32, device=dev)
+    qspec = enc.WireSpec(rows, 1024, k, quant=s)
+    fspec = enc.WireSpec(rows, 1024, k)
+    norms, codes = on_card
+    u = u.to(dev)
+    times = {
+        "quantize": cuda_ms(lambda: quantize_rows(vals, s, u), 5),
+        "dequantize": cuda_ms(lambda: enc.dequantize_rows(norms, codes, s),
+                              5),
+        "quantized encode": cuda_ms(lambda: enc.encode(
+            qspec, codes, idx, norms=norms), 5),
+        "float32 encode": cuda_ms(lambda: enc.encode(fspec, vals, idx), 5)}
+    print(f"quantizer timing at ({rows}, {k}), s = {s} ({card_state()}): "
+          + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items())
+          + f"; message {qspec.nbytes} B quantized, {fspec.nbytes} B float32")
+
+
+def phase_qsparse(dev) -> dict:
+    """Phase 17, Qsparse-local-SGD (see the module docstring): the
+    qsparse_local run in a 1-rank NCCL group, H = 1 through the
+    accumulator against the direct sync, the quantizer card against CPU.
+    Returns the run's launches."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import buckets as bk
+    from repro_torch.core.distributed import (SyncConfig,
+                                              amortized_bytes_per_step,
+                                              bucketed_message_bytes)
+
+    t0 = time.perf_counter()
+    model = full_model()
+    plan = bk.make_plan(model.param_shapes())
+    sync = SyncConfig.preset("qsparse_local", ratio=RATIO)
+    k = sync.k_for(sync.bucket_cols)
+    per_sync = bucketed_message_bytes(sync, plan)
+    per_step = amortized_bytes_per_step(sync, plan)
+    topk = bucketed_message_bytes(SyncConfig.preset("topk", ratio=RATIO),
+                                  plan)
+    print(f"qsparse_local: {ARCH} {N_LAYERS} layers at full width, H = "
+          f"{sync.local_steps}, s = {sync.quant}, k = {k}, {sync.wire} wire: "
+          f"{per_sync} B a sync, {per_step} B a step; the topk preset at "
+          f"ratio {RATIO}: {topk} B a step")
+    if (per_sync, per_step, topk) != (QSPARSE_SYNC_BYTES, QSPARSE_STEP_BYTES,
+                                      TOPK_BYTES_AT_RATIO) \
+            or not per_sync < topk:
+        fail(f"qsparse_local bytes {per_sync} a sync, {per_step} a step, "
+             f"topk {topk}: expected {QSPARSE_SYNC_BYTES}, "
+             f"{QSPARSE_STEP_BYTES}, {TOPK_BYTES_AT_RATIO}")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1)
+        try:
+            launches = qsparse_run(model, sync, dev, fused_branch(k),
+                                   per_step)
+            gc.collect()
+            torch.cuda.empty_cache()
+            vals = qsparse_h1(model, plan, sync, dev)
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    qsparse_quantizer(vals, dev, sync.quant)
+    del vals
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 17 (Qsparse-local-SGD): {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -2786,7 +3187,8 @@ def pod_rank_work(rank: int, dev) -> dict:
     from repro_torch.core.distributed import (SyncConfig,
                                               bucketed_message_bytes,
                                               bucketed_sync_gradients)
-    from repro_torch.core.selfcheck import (overlap_selfcheck,
+    from repro_torch.core.selfcheck import (local_quant_selfcheck,
+                                            overlap_selfcheck,
                                             repack_selfcheck)
     from repro_torch.data import ShardedBatcher, token_batches
     from repro_torch.kernels.ops import _resolve_method
@@ -2814,7 +3216,7 @@ def pod_rank_work(rank: int, dev) -> dict:
     quiet = print if rank == 0 else (lambda line: None)
     out = {"rank": rank, "pod": layout.pod, "data": layout.data}
 
-    def run(label, tc, steps, n_calib, reselect=reselect):
+    def run(label, tc, steps, n_calib, reselect=reselect, n_sync=None):
         batches = ShardedBatcher(token_batches(V, BATCH, SEQ, seed=0), dev)
         tel = step_clock(quiet)
         params = model.init(seed=0, device=dev)
@@ -2827,8 +3229,9 @@ def pod_rank_work(rank: int, dev) -> dict:
         torch.cuda.synchronize()
         counts = launch_counts()
         want = {name: 0 for name in counts}
-        want[fused_branch(k_row)] = steps
-        want[reselect] += steps
+        n_sync = steps if n_sync is None else n_sync
+        want[fused_branch(k_row)] = n_sync
+        want[reselect] += n_sync
         if layout.pod == 0:  # pod 0's ranks simulate the pod mean
             want[calib] += n_calib
         losses = tel.losses
@@ -2837,7 +3240,7 @@ def pod_rank_work(rank: int, dev) -> dict:
                            zip(tel.times, tel.times[1:-1])],
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                "schedule": [[i, list(ks)] for i, ks in tel.refresh_schedule],
-               "initial_ks": list(tel.initial_pod_ks),
+               "initial_ks": list(tel.initial_pod_ks or ()),
                "bytes": tel.bytes_per_step}
         if len(losses) != steps or not all(map(math.isfinite, losses)) \
                 or not lnv - 1 <= losses[0] <= lnv + 2 \
@@ -3023,6 +3426,7 @@ def pod_rank_work(rank: int, dev) -> dict:
     out["bf16 run"] = rec16
     del params, memory, g_tree
     torch.cuda.empty_cache()
+    out["qsparse run"] = pod_qsparse(model, plan, layout, run, dev)
 
     # a small input: rwkv6-3b's smoke config in float32, this rank's
     # quarter of the batch; the gradients on the card and the CPU (1e-3
@@ -3093,12 +3497,105 @@ def pod_rank_work(rank: int, dev) -> dict:
 
     # the bucket pipeline's self-checks on this layout, on the card
     checks = {"overlap": overlap_selfcheck(layout, device=dev),
-              "repack": repack_selfcheck(layout, device=dev)}
+              "repack": repack_selfcheck(layout, device=dev),
+              "local_quant": local_quant_selfcheck(layout, device=dev)}
     if not all(v for c in checks.values() for k, v in c.items()
-               if k != "padded_vs_live_bytes"):
+               if k not in ("padded_vs_live_bytes",
+                            "quant_conservation_max_err")) \
+            or not checks["local_quant"]["quant_conservation_max_err"] < 1e-5:
         _rank_fail(f"self-checks: {checks}")
     out["selfchecks"] = checks
     return out
+
+
+def pod_qsparse(model, plan, layout, run, dev) -> dict:
+    """The pod phase's Qsparse-local-SGD run on one rank (phase 17): the
+    two-level chain at POD_QUANT_H local steps and POD_QUANT_S levels on
+    the packed wire, autotuned, POD_QUANT_STEPS steps through ``run`` (one
+    fused and one re-select launch a sync step; params bitwise on every
+    rank); then a probe sync on its state with the pod k at k_row: the
+    level-2 codes (the pod summary's) identical on the ranks of each pod,
+    each level's realized bytes the accounting, mass conserved within 1e-5
+    through an all-reduce. Returns what the parent prints."""
+    import torch.distributed as dist
+
+    import repro_torch.core.distributed as dist_mod
+    from repro_torch.core import buckets as bk
+    from repro_torch.core.distributed import (SyncConfig, WireConfig,
+                                              amortized_bytes_per_step,
+                                              bucketed_message_bytes)
+    from repro_torch.data import ShardedBatcher, token_batches
+    from repro_torch.kernels.ref import eta32
+    from repro_torch.launch.train import TrainConfig, _grads
+    from repro_torch.optim.qsgd import QuantNoise
+    from repro_torch.utils.tree import tree_flatten, tree_leaves
+
+    W = PODS * POD_DATA
+    V = model.cfg.vocab_size
+    sync = SyncConfig(strategy="hierarchical", ratio=RATIO, bucketed=True,
+                      local_steps=POD_QUANT_H,
+                      wire=WireConfig(wire="packed", quant=POD_QUANT_S))
+    rec, params, memory, _ = run(
+        "qsparse run", TrainConfig(eta=POD_ETA, sync=sync), POD_QUANT_STEPS,
+        1, n_sync=POD_QUANT_STEPS // POD_QUANT_H)
+    rec["params_same_on_every_rank"] = all(
+        _same_on_every_rank(p) for p in tree_leaves(params))
+    if not rec["params_same_on_every_rank"]:
+        _rank_fail("qsparse run: the params differ across the ranks")
+    probe = sync.with_pod(axis="pod")
+    grads, _ = _grads(model, params, {k: v for k, v in next(iter(
+        ShardedBatcher(token_batches(V, BATCH, SEQ, seed=9), dev))).items()})
+    g_tree = tree_flatten(params)[1].unflatten(grads)
+    del grads, params
+    level, codes = {"intra": 0, "cross": 0}, []
+    real = dist_mod._quantize_selected
+
+    def spy(cfg, vals, uniforms):
+        q = real(cfg, vals, uniforms)
+        codes.append(q[1])
+        return q
+
+    dist_mod._quantize_selected = spy
+    try:
+        upd, new_m, _ = dist_mod.bucketed_sync_gradients(
+            probe, plan, [m.clone() for m in memory], g_tree, POD_ETA,
+            layout=layout, level_bytes=level,
+            quant_noise=QuantNoise(0, POD_QUANT_STEPS))
+    finally:
+        dist_mod._quantize_selected = real
+    accounted = bucketed_message_bytes(probe, plan, by_level=True)
+    # the sparse bucket's level-2 codes: each rank's against its pod's
+    got = dist_mod._all_gather(codes[1], layout.data_group)
+    same_in_pod = all(same_bits(got[0], g) for g in got[1:])
+    del got, codes
+    u = bk.pack(plan, g_tree, dtype=torch.float32)
+    del g_tree
+    upd = bk.pack(plan, upd)
+    worst = worst_rel = 0.0
+    for b, spec in enumerate(plan.buckets):
+        u[b].mul_(eta32(POD_ETA)).add_(memory[b])  # u = m + eta * g
+        for t in (u[b], new_m[b]):
+            dist.all_reduce(t)
+            t.div_(W)
+        upd[b].add_(new_m[b])
+        err = float((u[b] - upd[b]).abs().max())
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, err / float(u[b].abs().max()))
+    rec["probe"] = {"level": level, "accounted": accounted,
+                    "level2_codes_same_in_pod": same_in_pod,
+                    "conservation": worst, "conservation_rel": worst_rel,
+                    "amortized": amortized_bytes_per_step(
+                        probe, plan, by_level=True)}
+    if not same_in_pod:
+        _rank_fail("qsparse probe: the level-2 codes differ within a pod")
+    if level != {k: accounted[k] for k in level}:
+        _rank_fail(f"qsparse probe: realized bytes {level}, accounted "
+                   f"{accounted}")
+    if worst > 1e-5:
+        _rank_fail(f"qsparse probe: mass conservation off by {worst:.3g}")
+    del memory, u, upd, new_m
+    torch.cuda.empty_cache()
+    return rec
 
 
 def pod_rank(rank: int, tmp: str) -> None:
@@ -3170,7 +3667,7 @@ def phase_pod(dev) -> dict:
     launches = {}
     for run in ("refresh run", "pod_budgeted run",
                 "pod_budgeted run, overlap off", "pod_budgeted run, overlap on",
-                "bf16 run"):
+                "bf16 run", "qsparse run"):
         first = recs[0][run]
         for r in recs[1:]:
             if (r[run]["losses"], r[run]["schedule"]) != (
@@ -3223,14 +3720,27 @@ def phase_pod(dev) -> dict:
           "live pod k bitwise the static pod k (params and memory)")
     print("pod sync pod_budgeted run at overlap off and on: params and "
           "memory bitwise the overlap None run's on every rank")
+    q = recs[0]["qsparse run"]["probe"]
+    print(f"pod sync qsparse run (local_steps {POD_QUANT_H}, quant "
+          f"{POD_QUANT_S}): params bitwise on every rank; probe sync: "
+          f"realized {q['level']} B/worker a sync, accounted "
+          f"{q['accounted']}, amortized a step {q['amortized']}; level-2 "
+          f"codes identical within each pod on every rank: "
+          f"{all(r['qsparse run']['probe']['level2_codes_same_in_pod'] for r in recs)}; "
+          f"mass conservation worst "
+          f"{max(r['qsparse run']['probe']['conservation'] for r in recs):.3g} "
+          f"({max(r['qsparse run']['probe']['conservation_rel'] for r in recs):.3g} "
+          "of max |u|)")
     checks = recs[0]["selfchecks"]
     print(f"pod sync self-checks on the (2, 2) layout, on the card: "
-          f"overlap {checks['overlap']}; repack {checks['repack']}")
+          f"overlap {checks['overlap']}; repack {checks['repack']}; "
+          f"local_quant {checks['local_quant']}")
     print(f"pod sync phase: {secs:.1f} s; its top-k launches {reselect}")
     return launches
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -3245,6 +3755,7 @@ def main() -> None:
     pod_launches = phase_pod(dev)
     by_arch = {ARCH: {"bucketed": phase_bucketed(dev),
                       "topk preset": phase_topk_preset(dev),
+                      "qsparse_local": phase_qsparse(dev),
                       "per-leaf": phase_leaf(dev, leaf_shapes[ARCH])}}
     overlap_launches = phase_overlap(dev, leaf_shapes[ARCH])
     by_arch.update(phase_moe(dev, leaf_shapes))
@@ -3308,6 +3819,7 @@ def main() -> None:
     if any(k["launches"] == 0 for k in kernels):
         fail(f"a kernel of the kernels line was never launched on its path: "
              f"{[(k['name'], k['launches_from']) for k in kernels]}")
+    print(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"launches_by_arch": by_arch}))
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": kernels}))

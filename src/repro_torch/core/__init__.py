@@ -7,7 +7,8 @@ PyTorch modules, the bucketed engine and the sync.
 * ``repro_torch.core.buckets``     — flat-buffer engine (tree -> buckets).
 * ``repro_torch.core.distributed`` — PARALLEL-MEM-SGD sync.
 * ``repro_torch.core.theory``      — Theorem 2.4 stepsizes / averaging / bounds.
-* ``repro_torch.core.encoding``    — packed sparse wire codec.
+* ``repro_torch.core.encoding``    — packed sparse wire codec (and its QSGD
+  quantized tier).
 """
 from repro_torch.core.compression import (
     Compressor,
@@ -29,20 +30,32 @@ from repro_torch.core.memsgd import (
 )
 from repro_torch.core.buckets import (
     BucketPlan,
+    accumulate_local,
     bucket_memory_step,
     init_bucket_memory,
+    init_local_accum,
     make_plan,
     pack,
     unpack,
 )
 from repro_torch.core.distributed import (
+    PodConfig,
     SyncConfig,
+    TransportConfig,
+    WireConfig,
+    amortized_bytes_per_step,
     bucketed_message_bytes,
     bucketed_sync_gradients,
     message_bytes,
     sparse_sync_gradients,
 )
-from repro_torch.core.encoding import WireSpec, decode as wire_decode, encode as wire_encode
+from repro_torch.core.encoding import (
+    WireSpec,
+    decode as wire_decode,
+    decode_quant as wire_decode_quant,
+    dequantize_rows,
+    encode as wire_encode,
+)
 
 __all__ = [
     "Compressor",
@@ -62,17 +75,25 @@ __all__ = [
     "leaf_compressor_from_ratio",
     "constant_eta",
     "BucketPlan",
+    "accumulate_local",
     "bucket_memory_step",
     "init_bucket_memory",
+    "init_local_accum",
     "make_plan",
     "pack",
     "unpack",
+    "PodConfig",
     "SyncConfig",
+    "TransportConfig",
+    "WireConfig",
+    "amortized_bytes_per_step",
     "bucketed_message_bytes",
     "bucketed_sync_gradients",
     "message_bytes",
     "sparse_sync_gradients",
     "WireSpec",
+    "dequantize_rows",
     "wire_decode",
+    "wire_decode_quant",
     "wire_encode",
 ]

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import densify_rows_ref, fused_memsgd_update
-from repro_torch.kernels.ref import eta_as
+from repro_torch.kernels.ref import eta32, eta_as
 from repro_torch.utils.tree import TreeDef, tree_flatten
 
 DEFAULT_BUCKET_COLS = 1024
@@ -218,6 +218,34 @@ def init_bucket_memory(plan: BucketPlan, dtype=torch.float32,
     """Zero error-feedback memory, one buffer per bucket (m_0 = 0)."""
     return tuple(torch.zeros(spec.shape, dtype=dtype, device=device)
                  for spec in plan.buckets)
+
+
+def init_local_accum(plan: BucketPlan, dtype=torch.float32,
+                     device="cpu") -> Tuple[torch.Tensor, ...]:
+    """Zero local-step accumulator, one buffer per bucket.
+
+    Qsparse-local-SGD (``SyncConfig(local_steps=H)``): between syncs each
+    worker folds its scaled gradients into this bucket-space accumulator,
+    acc = sum_h eta_h * g_h; the sync round then compresses u = m + acc
+    and resets acc to zero. The memory's shapes and dtype."""
+    return tuple(torch.zeros(spec.shape, dtype=dtype, device=device)
+                 for spec in plan.buckets)
+
+
+def accumulate_local(plan: BucketPlan, acc_bufs: Sequence[torch.Tensor],
+                     grad_tree, eta) -> Tuple[torch.Tensor, ...]:
+    """One uncommunicated local step: acc + e * pack(g) per bucket, with e
+    the float32 eta, as two rounded ops (the product, then the sum), in
+    place on ``acc_bufs``, which it returns. ``add_(g, alpha=e)``,
+    ``addcmul`` or a compiled fusion could contract the two into one FMA
+    on the card, and the accumulator path at H = 1 would no longer give
+    the direct path's u = m + e*g (the fused kernel's ``__fmul_rn`` then
+    ``__fadd_rn``) bit for bit."""
+    g_bufs = pack(plan, grad_tree, dtype=torch.float32)
+    e = eta32(eta)
+    for a, g in zip(acc_bufs, g_bufs):
+        a.add_(torch.mul(g, e))
+    return tuple(acc_bufs)
 
 
 def bucket_memory_step(

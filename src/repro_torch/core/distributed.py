@@ -73,19 +73,32 @@ two terms a column, the two give the same bits. Where the reference's
 pod re-select is its argmax loop, its compiled keys are the pod mean's
 float32 product before the rounding to bf16 (``_pod_mean_select``).
 
+Qsparse-local-SGD (the ``qsparse_local`` preset): ``WireConfig.quant`` = s
+adds a Q stage after each select (``_sparse_stages``, ``_hier_stages``):
+the selection is QSGD-quantized (``optim.qsgd.quantize_rows``) on the
+noise of a ``QuantNoise`` (level 1: the worker's own, level 2: its pod's),
+the memory keeps the quantization error (``vals - deq`` at the selected
+entries, the reference's ``u - own`` with ``own`` dequantized), and the
+wire ships the codes and row norms (packed) or the dequantized values
+(unpacked), so both give the same bits. ``local_steps`` = H is the train
+step's: H - 1 local steps fold eta_t * g_t into a bucket-space
+accumulator (``buckets.accumulate_local``) and the H-th syncs m + acc
+through ``bucketed_sync_gradients(grad_bufs=)`` at eta 1.0;
+``amortized_bytes_per_step`` is a step's share of the sync's bytes.
+
 What the port runs: the ``sparse_allgather``, ``hierarchical`` and
 ``dense`` strategies, both wires, float32 or bf16 wire values (flat and
 two-level: the bf16 pod mean is re-selected by the bf16 row top-k
 kernels, or on its float32 keys where the reference's argmax loop keeps
-them), any number of workers, and the ``dense``, ``topk`` and
-``pod_budgeted`` presets, at every ``overlap``. Every other option raises
-``NotImplementedError`` naming it: quantization and local steps > 1.
+them), the quantized tier, local steps, any number of workers, and every
+preset of the reference's, at every ``overlap``.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Sequence, Tuple
+import warnings
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -105,21 +118,110 @@ VALUE_DTYPES = ("float32", "bfloat16")
 
 
 @dataclasses.dataclass(frozen=True)
-class SyncConfig:
-    """How gradients are synchronized across the data-parallel workers.
+class PodConfig:
+    """The two-level (pod-aware) half of a ``SyncConfig``: the pod
+    re-compression ratio (None: the sync's ``ratio``), per-bucket ratios
+    index-aligned with the bucket plan (``autotune_pod_ratios``), the
+    autotune's mass-capture target, the runtime pod k (bucketed only), a
+    cap on its static padded k as a fraction of cols, and the pod axis
+    (the launcher sets "pod" on a layout of more than one pod)."""
 
-    Flat fields with the reference's names and defaults (the reference
-    groups the pod/wire/transport knobs into sub-configs and reads them
-    back under these flat names). The reference's ``layout`` and
-    ``constrain_intermediates`` serve its partitioner and have no
-    counterpart: with no model axis (each worker holds whole tensors)
-    every layout selects over the same rows."""
+    ratio: Optional[float] = None
+    ratios: Optional[Tuple[float, ...]] = None
+    mass_target: float = 0.9
+    dynamic: bool = False
+    k_max_ratio: Optional[float] = None
+    axis: Optional[str] = None
+
+    def __post_init__(self):
+        if self.ratios is not None and not isinstance(self.ratios, tuple):
+            object.__setattr__(self, "ratios", tuple(self.ratios))
+
+
+@dataclasses.dataclass(frozen=True)
+class WireConfig:
+    """What one sync message looks like on the wire: ``"unpacked"`` (the
+    value_dtype values and int32 indices) or ``"packed"``
+    (``core.encoding``), the wire's value dtype, and ``quant``: QSGD's
+    s-level stochastic quantization of the selected values
+    (Qsparse-local-SGD's Q step). Every sync stage quantizes before its
+    encode, the sender's own contribution uses the DEQUANTIZED values, so
+    the error-feedback memory absorbs the quantization error, and the
+    packed wire ships ``1 + ceil(log2(quant+1))``-bit codes and one f32
+    row norm (``encoding.WireSpec(quant=)``). None: exact values."""
+
+    wire: str = "unpacked"
+    value_dtype: str = "float32"
+    quant: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TransportConfig:
+    """How sync messages move and are budgeted: the header-aware repack
+    boundary before the cross-pod gather (the identity inside a step), the
+    cross-pod byte budget per step per worker that
+    ``core.budget.BudgetController`` water-fills, and the bucket
+    pipeline's schedule (``core.pipeline``: None the plain
+    bucket-after-bucket emission, False depth 1, True the double
+    buffer)."""
+
+    repack: bool = False
+    byte_budget: Optional[int] = None
+    overlap: Optional[bool] = None
+
+
+# a flat SyncConfig keyword -> (its group, its name there), the
+# reference's _FLAT_TO_GROUP
+_FLAT_TO_GROUP = {
+    "pod_ratio": ("pod", "ratio"),
+    "pod_ratios": ("pod", "ratios"),
+    "pod_mass_target": ("pod", "mass_target"),
+    "pod_dynamic": ("pod", "dynamic"),
+    "pod_k_max_ratio": ("pod", "k_max_ratio"),
+    "pod_axis": ("pod", "axis"),
+    "wire": ("wire_cfg", "wire"),
+    "value_dtype": ("wire_cfg", "value_dtype"),
+    "quant": ("wire_cfg", "quant"),
+    "repack": ("transport", "repack"),
+    "byte_budget": ("transport", "byte_budget"),
+    "overlap": ("transport", "overlap"),
+}
+
+
+@dataclasses.dataclass(frozen=True, init=False)
+class SyncConfig:
+    """How gradients are synchronized across the data-parallel workers
+    (the reference's ``SyncConfig``, its fields, defaults and groups).
+
+    The pod knobs live in ``cfg.pod`` (``PodConfig``), the message format
+    in ``cfg.wire_cfg`` (``WireConfig``), the transport and schedule in
+    ``cfg.transport`` (``TransportConfig``)::
+
+        SyncConfig(strategy="hierarchical", bucketed=True,
+                   pod=PodConfig(dynamic=True, axis="pod"),
+                   wire=WireConfig(wire="packed"),
+                   transport=TransportConfig(repack=True))
+
+    or ``SyncConfig.preset(name)``. Flat reads (``cfg.pod_dynamic``,
+    ``cfg.wire``, ``cfg.quant``, ...) are properties; flat construction
+    keywords (``SyncConfig(wire="packed")``, and ``dataclasses.replace``
+    with a flat name) still parse into the groups under a
+    ``DeprecationWarning``, as the reference's. ``with_pod``,
+    ``with_wire`` and ``with_transport`` edit a group without one.
+
+    ``local_steps`` = H > 1 is Qsparse-local-SGD: H uncommunicated steps
+    accumulate u = sum_h eta_h * g_h in bucket space
+    (``buckets.accumulate_local``), then one sync of m + acc; bytes per
+    step fall by H (``amortized_bytes_per_step``). The reference's
+    ``data_axes``, ``layout`` and ``constrain_intermediates`` serve its
+    partitioner and have no counterpart: with no model axis (each worker
+    holds whole tensors) every layout selects over the same rows."""
 
     strategy: str = "sparse_allgather"  # | "hierarchical" | "dense"
     ratio: float = 0.001  # per-row k_row = max(k_min, ratio * row_len)
     k_min: int = 1
     k_max: Optional[int] = None
-    local_steps: int = 1  # > 1 (Qsparse-local-SGD) not ported
+    local_steps: int = 1
     dense_below: int = 16_384  # smaller leaves sync densely
     # the reference's selection implementations; every one gives the same
     # contract. The bucketed path runs each on the fused kernel; the
@@ -129,64 +231,123 @@ class SyncConfig:
     argmax_k_limit: int = 64  # argmax_onehot takes the threshold above it
     bucketed: bool = False  # False: the per-leaf path
     bucket_cols: int = 1024
-    wire: str = "unpacked"  # | "packed" (core.encoding)
-    value_dtype: str = "float32"
-    quant: Optional[int] = None  # QSGD levels, not ported
-    # the bucket pipeline's schedule (core.pipeline): None the plain
-    # bucket-after-bucket emission, False depth 1, True the double buffer
-    overlap: Optional[bool] = None
-    # the two-level (hierarchical) sync: the pod re-compression ratio
-    # (None: ``ratio``), per-bucket ratios index-aligned with the bucket
-    # plan (``autotune_pod_ratios``), the autotune's mass-capture target,
-    # the runtime pod k (bucketed only), a cap on its static padded k as
-    # a fraction of cols, and the pod axis (the launcher sets "pod" on a
-    # layout of more than one pod)
-    pod_ratio: Optional[float] = None
-    pod_ratios: Optional[Tuple[float, ...]] = None
-    pod_mass_target: float = 0.9
-    pod_dynamic: bool = False
-    pod_k_max_ratio: Optional[float] = None
-    pod_axis: Optional[str] = None
-    # the header-aware repack boundary before the cross-pod gather (the
-    # identity inside a step), and the cross-pod byte budget per step per
-    # worker that ``core.budget.BudgetController`` water-fills
-    repack: bool = False
-    byte_budget: Optional[int] = None
+    pod: PodConfig = PodConfig()
+    wire_cfg: WireConfig = WireConfig()
+    transport: TransportConfig = TransportConfig()
 
-    def __post_init__(self):
-        if self.pod_ratios is not None and not isinstance(self.pod_ratios,
-                                                          tuple):
-            object.__setattr__(self, "pod_ratios", tuple(self.pod_ratios))
+    def __init__(self, strategy: str = "sparse_allgather",
+                 ratio: float = 0.001, k_min: int = 1,
+                 k_max: Optional[int] = None, local_steps: int = 1,
+                 dense_below: int = 16_384, selection: str = "argmax_onehot",
+                 argmax_k_limit: int = 64, bucketed: bool = False,
+                 bucket_cols: int = 1024, pod: Optional[PodConfig] = None,
+                 wire: Union[WireConfig, str, None] = None,
+                 transport: Optional[TransportConfig] = None,
+                 wire_cfg: Optional[WireConfig] = None, _warn: bool = True,
+                 **legacy):
+        # wire= is both the grouped keyword (a WireConfig) and the flat
+        # format string; wire_cfg= is the field's own name (what
+        # dataclasses.replace passes back)
+        if isinstance(wire, WireConfig):
+            if wire_cfg is not None:
+                raise TypeError(
+                    "pass either wire=WireConfig(...) or wire_cfg=, not both")
+            wire_cfg, wire = wire, None
+        if wire is not None:
+            legacy["wire"] = wire
+        unknown = set(legacy) - set(_FLAT_TO_GROUP)
+        if unknown:
+            raise TypeError(
+                f"SyncConfig got unexpected argument(s) {sorted(unknown)}")
+        if legacy and _warn:
+            warnings.warn(
+                f"flat SyncConfig keyword(s) {sorted(legacy)} are deprecated; "
+                "use the grouped pod=PodConfig(...)/wire=WireConfig(...)/"
+                "transport=TransportConfig(...) fields or "
+                "SyncConfig.preset(...)", DeprecationWarning, stacklevel=2)
+        groups = {"pod": pod if pod is not None else PodConfig(),
+                  "wire_cfg": wire_cfg if wire_cfg is not None
+                  else WireConfig(),
+                  "transport": transport if transport is not None
+                  else TransportConfig()}
+        over = {g: {} for g in groups}
+        for k, v in legacy.items():
+            grp, name = _FLAT_TO_GROUP[k]
+            over[grp][name] = v
+        for grp, kw in over.items():
+            if kw:
+                groups[grp] = dataclasses.replace(groups[grp], **kw)
+        for name, v in (("strategy", strategy), ("ratio", ratio),
+                        ("k_min", k_min), ("k_max", k_max),
+                        ("local_steps", int(local_steps)),
+                        ("dense_below", dense_below), ("selection", selection),
+                        ("argmax_k_limit", argmax_k_limit),
+                        ("bucketed", bucketed), ("bucket_cols", bucket_cols),
+                        *groups.items()):
+            object.__setattr__(self, name, v)
+
+    # -- flat reads ---------------------------------------------------------
+
+    pod_ratio = property(lambda self: self.pod.ratio)
+    pod_ratios = property(lambda self: self.pod.ratios)
+    pod_mass_target = property(lambda self: self.pod.mass_target)
+    pod_dynamic = property(lambda self: self.pod.dynamic)
+    pod_k_max_ratio = property(lambda self: self.pod.k_max_ratio)
+    pod_axis = property(lambda self: self.pod.axis)
+    wire = property(lambda self: self.wire_cfg.wire)
+    value_dtype = property(lambda self: self.wire_cfg.value_dtype)
+    quant = property(lambda self: self.wire_cfg.quant)
+    repack = property(lambda self: self.transport.repack)
+    byte_budget = property(lambda self: self.transport.byte_budget)
+    overlap = property(lambda self: self.transport.overlap)
+
+    # -- grouped edits without a warning ------------------------------------
+
+    def with_pod(self, **kw) -> "SyncConfig":
+        """``self`` with fields of ``self.pod`` replaced."""
+        return dataclasses.replace(
+            self, pod=dataclasses.replace(self.pod, **kw))
+
+    def with_wire(self, **kw) -> "SyncConfig":
+        """``self`` with fields of ``self.wire_cfg`` replaced."""
+        return dataclasses.replace(
+            self, wire_cfg=dataclasses.replace(self.wire_cfg, **kw))
+
+    def with_transport(self, **kw) -> "SyncConfig":
+        """``self`` with fields of ``self.transport`` replaced."""
+        return dataclasses.replace(
+            self, transport=dataclasses.replace(self.transport, **kw))
 
     @classmethod
     def preset(cls, name: str, **overrides) -> "SyncConfig":
         """A known-good bundle of the reference's (``SyncConfig.preset``),
-        with flat ``overrides`` set on top:
+        with ``overrides`` on top (flat keywords edit single fields, without
+        a warning; grouped ones replace a whole group):
 
-        * ``"dense"``        — vanilla data-parallel all-reduce.
-        * ``"topk"``         — the paper's Mem-SGD: bucketed top-k over the
+        * ``"dense"``         — vanilla data-parallel all-reduce.
+        * ``"topk"``          — the paper's Mem-SGD: bucketed top-k over the
           packed wire.
-        * ``"pod_budgeted"`` — the two-level pod sync with runtime pod k
+        * ``"qsparse_local"`` — Qsparse-local-SGD: 4 local steps, top-k and
+          15-level stochastic quantization, packed wire.
+        * ``"pod_budgeted"``  — the two-level pod sync with runtime pod k
           and the repack boundary (give it ``byte_budget=`` to water-fill;
           the launcher sets ``pod_axis`` from the layout).
-        * ``"qsparse_local"`` is not ported (local steps with
-          quantization) and raises ``NotImplementedError``.
         """
-        if name in _UNPORTED_PRESETS:
-            raise NotImplementedError(
-                f"SyncConfig preset {name!r} ({_UNPORTED_PRESETS[name]}) is "
-                "not ported to the PyTorch port yet")
-        if name not in _PRESETS:
+        try:
+            merged = dict(_PRESETS[name])
+        except KeyError:
             raise ValueError(
                 f"unknown SyncConfig preset {name!r}; available: "
-                f"{sorted(list(_PRESETS) + list(_UNPORTED_PRESETS))}")
-        return dataclasses.replace(cls(**_PRESETS[name]), **overrides)
+                f"{sorted(_PRESETS)}") from None
+        for k, v in overrides.items():
+            merged["wire_cfg" if k == "wire" and isinstance(v, WireConfig)
+                   else k] = v
+        return cls(_warn=False, **merged)
 
     def validate(self, plan=None) -> "SyncConfig":
-        """Raise a named error for an unknown value or an illegal
-        combination (``ValueError``, the reference's) or an option the
-        port does not run yet (``NotImplementedError``). With the bucket
-        ``plan``, also check that ``pod_ratios`` is aligned with it."""
+        """Raise a named ``ValueError`` (the reference's) for an unknown
+        value or an illegal combination. With the bucket ``plan``, also
+        check that ``pod_ratios`` is aligned with it."""
         if self.strategy not in STRATEGIES:
             raise ValueError(f"unknown sync strategy {self.strategy!r}")
         if self.selection not in SELECTIONS:
@@ -201,6 +362,30 @@ class SyncConfig:
         if self.local_steps < 1:
             raise ValueError(
                 f"SyncConfig.local_steps must be >= 1, got {self.local_steps}")
+        if self.local_steps > 1 and not self.bucketed:
+            raise ValueError(
+                "SyncConfig.local_steps > 1 requires the bucketed engine "
+                "(bucketed=True): the local-step accumulator lives in "
+                "bucket space")
+        if self.quant is not None:
+            if self.quant < 1:
+                raise ValueError(
+                    f"WireConfig.quant must be >= 1 levels, got {self.quant}")
+            if self.strategy == "dense":
+                raise ValueError(
+                    "WireConfig.quant composes with the sparse selections; "
+                    "the dense all-reduce strategy has no quantize stage")
+            if not self.bucketed:
+                raise ValueError(
+                    "WireConfig.quant requires the bucketed engine "
+                    "(bucketed=True): quantization is defined on the "
+                    "(rows, cols) bucket layout")
+            if self.value_dtype != "float32":
+                raise ValueError(
+                    "WireConfig.quant replaces the value dtype on the wire "
+                    "(codes + f32 row norms); combining it with "
+                    f"value_dtype={self.value_dtype!r} would quantize "
+                    "already-rounded values")
         if self.pod_dynamic and (self.strategy != "hierarchical"
                                  or self.pod_axis is None
                                  or not self.bucketed):
@@ -219,14 +404,6 @@ class SyncConfig:
                 "SyncConfig.byte_budget requires the bucketed hierarchical "
                 "strategy: the budget water-fills per-bucket pod ks across "
                 "a BucketPlan")
-        unported = [
-            (self.quant is not None, "quant (QSGD wire quantization)"),
-            (self.local_steps > 1, "local_steps > 1"),
-        ]
-        for hit, name in unported:
-            if hit:
-                raise NotImplementedError(
-                    f"SyncConfig {name} is not ported to the PyTorch port yet")
         if plan is not None:
             validate_pod_ratios(self, plan)
         return self
@@ -293,15 +470,18 @@ def validate_pod_ratios(cfg: SyncConfig, plan) -> None:
             "included)")
 
 
-# the reference's bundles (its _PRESETS), in the port's flat fields
+# the reference's bundles (its _PRESETS)
 _PRESETS = {
     "dense": dict(strategy="dense"),
-    "topk": dict(strategy="sparse_allgather", bucketed=True, wire="packed"),
+    "topk": dict(strategy="sparse_allgather", bucketed=True,
+                 wire_cfg=WireConfig(wire="packed")),
+    "qsparse_local": dict(strategy="sparse_allgather", bucketed=True,
+                          local_steps=4,
+                          wire_cfg=WireConfig(wire="packed", quant=15)),
     "pod_budgeted": dict(strategy="hierarchical", bucketed=True,
-                         wire="packed", pod_dynamic=True, repack=True),
-}
-_UNPORTED_PRESETS = {
-    "qsparse_local": "local steps with quant, the QSGD wire",
+                         wire_cfg=WireConfig(wire="packed"),
+                         pod=PodConfig(dynamic=True),
+                         transport=TransportConfig(repack=True)),
 }
 
 
@@ -415,15 +595,35 @@ def _decode_packed(bufs: torch.Tensor, wspec: enc.WireSpec):
     return tile(vals), tile(idx)
 
 
+def _wspec(cfg: "SyncConfig", rows: int, cols: int, k: int) -> enc.WireSpec:
+    """The packed message layout of (rows, cols, k) pairs under ``cfg``:
+    its value dtype and its quantized tier."""
+    return enc.WireSpec(rows, cols, k, cfg.value_dtype, quant=cfg.quant)
+
+
+def _nbytes(cfg: "SyncConfig", rows: int, cols: int, k: int) -> int:
+    """``encoding.message_nbytes`` of (rows, cols, k) pairs under ``cfg``."""
+    return enc.message_nbytes(rows, cols, k, cfg.value_dtype, cfg.wire,
+                              quant=cfg.quant)
+
+
 def _payload(cfg: "SyncConfig", vals: torch.Tensor, idx: torch.Tensor,
              cols: int, live_n: Optional[int] = None):
     """This worker's message of its (rows, k) pairs: the packed buffer
     (``live_n`` stamped into its header), or the (value_dtype values,
-    int32 indices) arrays."""
+    int32 indices) arrays. ``vals`` under quant: the (norms, codes, deq)
+    of ``_quantize_selected``; the packed wire ships the codes and norms,
+    the unpacked one the dequantized values."""
+    if cfg.quant is not None:
+        norms, codes, vals = vals
+        if cfg.wire == "packed":
+            rows, k = codes.shape
+            return enc.encode(_wspec(cfg, rows, cols, k), codes, idx,
+                              live_n=live_n, norms=norms)
     if cfg.wire == "packed":
         rows, k = vals.shape
-        return enc.encode(enc.WireSpec(rows, cols, k, cfg.value_dtype), vals,
-                          idx, live_n=live_n)
+        return enc.encode(_wspec(cfg, rows, cols, k), vals, idx,
+                          live_n=live_n)
     return vals.to(getattr(torch, cfg.value_dtype)), idx
 
 
@@ -440,8 +640,7 @@ def _received(cfg: "SyncConfig", got, rows: int, cols: int, k: int):
     (rows, n*k) values in ``value_dtype`` and int32 indices, tiled in rank
     order (packed: decoded)."""
     if cfg.wire == "packed":
-        return _decode_packed(got, enc.WireSpec(rows, cols, k,
-                                                cfg.value_dtype))
+        return _decode_packed(got, _wspec(cfg, rows, cols, k))
     gv, gi = got
     return _tile(gv), _tile(gi)
 
@@ -614,10 +813,60 @@ def _select_encode_stage(cfg: "SyncConfig", select, rows: int, cols: int,
     def select_encode(x):
         mem, vals, idx = select(*x)
         if level_bytes is not None:
-            level_bytes["intra"] += enc.message_nbytes(
-                rows, cols, k_row, cfg.value_dtype, cfg.wire)
+            level_bytes["intra"] += _nbytes(cfg, rows, cols, k_row)
         return mem, _payload(cfg, vals, idx, cols)
     return select_encode
+
+
+def _quantize_selected(cfg: "SyncConfig", vals: torch.Tensor, uniforms):
+    """QSGD-quantize a (rows, k) selection on the given uniforms: (norms,
+    codes, dequantized float32 values). The dequantized values are what
+    every receiver decodes (``encoding.dequantize_rows``, the one shared
+    formula), so a memory that keeps ``vals - deq`` absorbs exactly the
+    quantization error that ships."""
+    from repro_torch.optim.qsgd import quantize_rows
+
+    norms, codes = quantize_rows(vals.to(torch.float32), cfg.quant, uniforms)
+    return norms, codes, enc.dequantize_rows(norms, codes, cfg.quant)
+
+
+def _keep_quant_error(mem: torch.Tensor, col_axis: int, idx: torch.Tensor,
+                      vals: torch.Tensor, deq: torch.Tensor) -> None:
+    """Into the memory of the selected entries (zeroed by the select),
+    their quantization error ``vals - deq``, in place: the reference's
+    ``u - own`` with ``own`` the densified dequantized selection, as
+    ``vals`` is u there bit for bit."""
+    moved = mem.movedim(col_axis, -1)
+    lead = moved.shape[:-1]
+    k = idx.shape[-1]
+    moved.scatter_(-1, idx.to(torch.int64).reshape(*lead, k),
+                   torch.sub(vals.to(torch.float32), deq).reshape(*lead, k)
+                   .to(mem.dtype))
+
+
+def _select_stage(select):
+    """A quantized chain's E (E1) stage: ``select`` (m, g) -> (memory,
+    vals, idx), the encode left to the Q stage."""
+    return lambda x: select(*x)
+
+
+def _quantize_encode_stage(cfg: "SyncConfig", col_axis: int, cols: int,
+                           k_row: int, uniforms_of,
+                           level_bytes: Optional[dict] = None):
+    """A quantized chain's Q (Q1) stage: (memory, vals, idx) -> (memory,
+    payload): the selection quantized on ``uniforms_of(shape, device)``,
+    its quantization error kept in the memory (``_keep_quant_error``) and
+    the quantized message encoded. ``level_bytes`` adds the message's
+    bytes to "intra"."""
+    def quantize_encode(st):
+        mem, vals, idx = st
+        q = _quantize_selected(cfg, vals, uniforms_of(vals.shape,
+                                                      vals.device))
+        _keep_quant_error(mem, col_axis, idx, vals, q[2])
+        if level_bytes is not None:
+            level_bytes["intra"] += _nbytes(cfg, vals.shape[0], cols, k_row)
+        return mem, _payload(cfg, q, idx, cols)
+    return quantize_encode
 
 
 def _decode_stage(cfg: "SyncConfig", col_axis: int, rows: int, cols: int,
@@ -635,23 +884,37 @@ def _decode_stage(cfg: "SyncConfig", col_axis: int, rows: int, cols: int,
 
 
 def _sparse_stages(cfg: "SyncConfig", select, col_axis: int, rows: int,
-                   cols: int, k_row: int, level_bytes: Optional[dict] = None):
+                   cols: int, k_row: int, level_bytes: Optional[dict] = None,
+                   uniforms_of=None):
     """The flat chain of one sparse leaf or bucket (the reference's
     ``_sparse_stages``): E, the select and the wire encode; G, the
     gather over every worker; D, the decode, the densify and / W. The
-    final state is (update, memory)."""
+    final state is (update, memory).
+
+    Under ``cfg.quant`` the encode moves to a Q stage after the select
+    (kinds COMPUTE, QUANT, COMM, COMPUTE): the selection quantized on
+    ``uniforms_of(shape, device)`` (this worker's level-1 noise), its
+    error kept in the memory, the quantized message encoded."""
+    decode = _decode_stage(cfg, col_axis, rows, cols, k_row,
+                           _densify_onehot(cfg, k_row))
+    if cfg.quant is not None:
+        return ([_select_stage(select),
+                 _quantize_encode_stage(cfg, col_axis, cols, k_row,
+                                        uniforms_of, level_bytes),
+                 _gather_stage(cfg), decode],
+                (pipeline.COMPUTE, pipeline.QUANT, pipeline.COMM,
+                 pipeline.COMPUTE))
     return ([_select_encode_stage(cfg, select, rows, cols, k_row,
                                   level_bytes),
-             _gather_stage(cfg),
-             _decode_stage(cfg, col_axis, rows, cols, k_row,
-                           _densify_onehot(cfg, k_row))],
+             _gather_stage(cfg), decode],
             (pipeline.COMPUTE, pipeline.COMM, pipeline.COMPUTE))
 
 
 def _hier_stages(cfg: "SyncConfig", layout, select, col_axis: int, rows: int,
                  cols: int, k_row: int, k_pod: int,
                  k_live: Optional[int] = None,
-                 level_bytes: Optional[dict] = None):
+                 level_bytes: Optional[dict] = None, uniforms_of=None,
+                 pod_uniforms_of=None):
     """The two-level chain of one sparse leaf or bucket (the reference's
     ``_hier_stages``):
 
@@ -681,11 +944,20 @@ def _hier_stages(cfg: "SyncConfig", layout, select, col_axis: int, rows: int,
     zeroing as they are no-ops in the subtraction. ``level_bytes`` adds
     this worker's realized bytes per level: the intra-pod message, and
     the cross-pod message as the repack transport ships it when
-    ``cfg.repack`` (``repack_transport``, counted at R)."""
+    ``cfg.repack`` (``repack_transport``, counted at R).
+
+    Under ``cfg.quant`` (kinds COMPUTE, QUANT, COMM, COMPUTE, QUANT,
+    (REPACK,) COMM, COMPUTE): Q1 quantizes this worker's selection on
+    ``uniforms_of`` (its own noise) and keeps the error in the memory; M
+    stops at the re-select; Q2 quantizes the pod summary on
+    ``pod_uniforms_of`` (the pod's noise, the same on each of its
+    workers, so each keeps the same residual and ships the same codes)
+    and leaves ``pvals - deq`` at the live slots of the pod residual, the
+    reference's ``pod_mean - densify(deq)``."""
     value_dtype = getattr(torch, cfg.value_dtype)
     n_live = k_pod if k_live is None else k_live
 
-    def pod_reselect_encode(st):
+    def pod_reselect(st):
         mem, got = st
         gv, gi = _received(cfg, got, rows, cols, k_row)
         del got
@@ -695,31 +967,55 @@ def _hier_stages(cfg: "SyncConfig", layout, select, col_axis: int, rows: int,
         del gv, gi
         if k_live is not None:
             pvals, pidx = mask_live_k(pvals, pidx, k_live)
-        # the residual, kept in memory: identical on every worker of the pod
+        return mem, pod_mean, pvals, pidx
+
+    def keep_residual(mem, pod_mean, pidx, left):
+        # the residual, kept in memory: identical on every worker of the
+        # pod; ``left`` is what the live selection leaves of the pod mean
         residual = pod_mean.scatter_(
-            1, pidx[:, :n_live].to(torch.int64), 0.0)
+            1, pidx[:, :n_live].to(torch.int64), left)
         moved = mem.movedim(col_axis, -1)
         moved.add_(residual.view(moved.shape))
-        del residual, pod_mean, moved
         if level_bytes is not None and not cfg.repack:
-            level_bytes["cross"] += enc.message_nbytes(
-                rows, cols, k_pod, cfg.value_dtype, cfg.wire)
+            level_bytes["cross"] += _nbytes(cfg, rows, cols, k_pod)
+
+    def pod_reselect_encode(st):
+        mem, pod_mean, pvals, pidx = pod_reselect(st)
+        keep_residual(mem, pod_mean, pidx, 0.0)
+        del pod_mean
         return mem, _payload(cfg, pvals, pidx, cols, live_n=k_live)
+
+    def pod_quantize_encode(st):
+        mem, pod_mean, pvals, pidx = st
+        q = _quantize_selected(cfg, pvals, pod_uniforms_of(pvals.shape,
+                                                           pvals.device))
+        keep_residual(mem, pod_mean, pidx,
+                      torch.sub(pvals, q[2])[:, :n_live].contiguous())
+        del pod_mean
+        return mem, _payload(cfg, q, pidx, cols, live_n=k_live)
 
     def repack_boundary(st):
         if level_bytes is not None:
             level_bytes["cross"] += (
-                repack_transport(enc.WireSpec(rows, cols, k_pod,
-                                              cfg.value_dtype), st[1],
+                repack_transport(_wspec(cfg, rows, cols, k_pod), st[1],
                                  live_n=k_live)[1]
-                if cfg.wire == "packed" else enc.message_nbytes(
-                    rows, cols, n_live, cfg.value_dtype, cfg.wire))
+                if cfg.wire == "packed" else _nbytes(cfg, rows, cols,
+                                                     n_live))
         return st
 
-    stages = [_select_encode_stage(cfg, select, rows, cols, k_row,
-                                   level_bytes),
-              _gather_stage(cfg, layout.data_group), pod_reselect_encode]
-    kinds = [pipeline.COMPUTE, pipeline.COMM, pipeline.COMPUTE]
+    if cfg.quant is not None:
+        stages = [_select_stage(select),
+                  _quantize_encode_stage(cfg, col_axis, cols, k_row,
+                                         uniforms_of, level_bytes),
+                  _gather_stage(cfg, layout.data_group), pod_reselect,
+                  pod_quantize_encode]
+        kinds = [pipeline.COMPUTE, pipeline.QUANT, pipeline.COMM,
+                 pipeline.COMPUTE, pipeline.QUANT]
+    else:
+        stages = [_select_encode_stage(cfg, select, rows, cols, k_row,
+                                       level_bytes),
+                  _gather_stage(cfg, layout.data_group), pod_reselect_encode]
+        kinds = [pipeline.COMPUTE, pipeline.COMM, pipeline.COMPUTE]
     if cfg.repack:
         stages.append(repack_boundary)
         kinds.append(pipeline.REPACK)
@@ -841,6 +1137,8 @@ def bucketed_sync_gradients(
     layout=None,
     pod_ks: Optional[Sequence[int]] = None,
     level_bytes: Optional[dict] = None,
+    grad_bufs: Optional[Sequence[torch.Tensor]] = None,
+    quant_noise=None,
 ):
     """PARALLEL-MEM-SGD gradient exchange over flat buckets.
 
@@ -857,6 +1155,15 @@ def bucketed_sync_gradients(
     shape. ``level_bytes`` (a dict with "intra" and "cross") adds the
     bytes this worker's messages realized at each level (``_hier_stages``;
     a dense bucket counts its buffer at both levels, as the accounting).
+
+    ``grad_bufs`` (one float32 (rows, cols) buffer per bucket) stands for
+    ``grad_tree``'s packing: the Qsparse-local-SGD step passes its
+    H-step accumulator here, at ``eta`` 1.0 (the stepsizes are in it
+    already, ``buckets.accumulate_local``). ``quant_noise``
+    (``optim.qsgd.QuantNoise``, or an object with its ``uniforms``) is
+    needed with ``cfg.quant``: bucket b's level-1 stage draws
+    ``uniforms(b, 1, rank)`` (the worker's global rank), a two-level
+    chain's level-2 stage ``uniforms(b, 2, pod)``.
     The buckets' chains run through ``pipeline.run_schedule`` at
     ``cfg.overlap_depth()``; each chain's input is its (memory, packed
     gradient) pair, and each packed gradient is dropped once its bucket's
@@ -874,11 +1181,21 @@ def bucketed_sync_gradients(
         raise ValueError(
             "SyncConfig.pod_dynamic needs pod_ks (one live pod k per "
             "bucket), or unset pod_dynamic for static pod ratios")
-    g_bufs = bk.pack(plan, grad_tree, dtype=torch.float32)
+    if cfg.quant is not None and quant_noise is None:
+        raise ValueError(
+            "WireConfig.quant needs quant_noise (an optim.qsgd.QuantNoise "
+            "of the step): stochastic rounding must draw fresh noise every "
+            "sync")
+    if grad_bufs is not None:
+        g_bufs = [g.to(torch.float32) for g in grad_bufs]
+    else:
+        g_bufs = bk.pack(plan, grad_tree, dtype=torch.float32)
     inits = list(zip(memory_bufs, g_bufs))
     del g_bufs
+    rank = layout.rank if layout is not None else _rank()
     stage_lists, kind_lists = [], []
     for b, spec in enumerate(plan.buckets):
+        noise = _noise_of(quant_noise, b, 1, rank)
         if cfg.strategy == "dense" or spec.kind == "dense":
             stages, kinds = _dense_stages(eta32(eta))
             if level_bytes is not None:
@@ -898,10 +1215,12 @@ def bucketed_sync_gradients(
                     k_pod = cfg.pod_k_for_bucket(b, spec.cols)
                 stages, kinds = _hier_stages(
                     cfg, layout, select, 1, spec.rows, spec.cols, k_row,
-                    k_pod, k_live, level_bytes)
+                    k_pod, k_live, level_bytes, noise,
+                    _noise_of(quant_noise, b, 2, layout.pod))
             else:
                 stages, kinds = _sparse_stages(
-                    cfg, select, 1, spec.rows, spec.cols, k_row, level_bytes)
+                    cfg, select, 1, spec.rows, spec.cols, k_row, level_bytes,
+                    noise)
         stage_lists.append(stages)
         kind_lists.append(kinds)
     outs = pipeline.run_schedule(inits, stage_lists, kind_lists,
@@ -910,6 +1229,20 @@ def bucketed_sync_gradients(
         cfg, plan, n_data=layout.n_data if layout is not None else None)
     return (bk.unpack(plan, [upd for upd, _ in outs]),
             tuple(mem for _, mem in outs), total)
+
+
+def _rank() -> int:
+    """This worker's global rank (0 without torch.distributed)."""
+    return torch.distributed.get_rank() if distributed() else 0
+
+
+def _noise_of(quant_noise, bucket: int, level: int, index: int):
+    """A stage's ``uniforms_of(shape, device)``: ``quant_noise``'s draws
+    for (bucket, level, index); None without quantization."""
+    if quant_noise is None:
+        return None
+    return lambda shape, device: quant_noise.uniforms(
+        bucket, level, index, tuple(shape), device)
 
 
 def repack_transport(wspec: enc.WireSpec, buf: torch.Tensor, link=None,
@@ -943,8 +1276,7 @@ def _sparse_leaf_bytes(cfg: SyncConfig, rows: int, cols: int,
     ks = [cfg.k_for(cols)]
     if cfg.strategy == "hierarchical" and cfg.pod_axis is not None:
         ks.append(pod_k if pod_k is not None else cfg.pod_k_for(cols))
-    return sum(enc.message_nbytes(rows, cols, k, cfg.value_dtype, cfg.wire)
-               for k in ks)
+    return sum(_nbytes(cfg, rows, cols, k) for k in ks)
 
 
 def autotune_pod_ratios(cfg: SyncConfig, plan, u_bufs, n_data: int,
@@ -1017,8 +1349,7 @@ def bucketed_message_bytes(cfg: SyncConfig, plan: bk.BucketPlan, *,
                 k2 = cfg.pod_k_max_for_bucket(b, spec.cols, n_data)
             else:
                 k2 = cfg.pod_k_for_bucket(b, spec.cols)
-            lvl1, lvl2 = (enc.message_nbytes(spec.rows, spec.cols, k,
-                                             cfg.value_dtype, cfg.wire)
+            lvl1, lvl2 = (_nbytes(cfg, spec.rows, spec.cols, k)
                           for k in (cfg.k_for(spec.cols), k2))
             total += lvl1 + lvl2
             intra += lvl1
@@ -1032,6 +1363,22 @@ def bucketed_message_bytes(cfg: SyncConfig, plan: bk.BucketPlan, *,
     if by_level:
         return {"intra": intra, "cross": cross, "total": total}
     return total
+
+
+def amortized_bytes_per_step(cfg: SyncConfig, plan: bk.BucketPlan, *,
+                             by_level: bool = False,
+                             n_data: Optional[int] = None,
+                             pod_ks: Optional[Sequence[int]] = None):
+    """Bytes per OPTIMIZER step under Qsparse-local-SGD: with
+    ``cfg.local_steps`` = H the workers communicate once every H steps, so
+    a step costs ``bucketed_message_bytes / H``. Its ``by_level``
+    contract; the values are floats."""
+    b = bucketed_message_bytes(cfg, plan, by_level=by_level, n_data=n_data,
+                               pod_ks=pod_ks)
+    H = max(1, cfg.local_steps)
+    if isinstance(b, dict):
+        return {k: v / H for k, v in b.items()}
+    return b / H
 
 
 def message_bytes(cfg: SyncConfig, params, col_axes=None) -> int:

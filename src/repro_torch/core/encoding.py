@@ -31,10 +31,23 @@ collectives take its int32 view (``buf.view(torch.int32)``).
    padded buffer bit for bit; ``message_nbytes(rows, cols, live_n)`` is
    the compacted size.
 
-Not ported: the quantized value tier (``WireSpec(quant=)`` and
-``message_nbytes(quant=)`` raise ``NotImplementedError``;
-``dequantize_rows`` and ``decode_quant`` are absent), ``transcode`` and
-the snapshot codec (absent; ROADMAP lists them).
+4. **Quantized value tier** (``WireSpec(quant=s)``, sparse and float32
+   only): the value section of a row carries QSGD's s-level codes
+   (Qsparse-local-SGD's Q step) instead of full-width values::
+
+       [ row_norm : 1 word (f32 bitcast) ]
+       [ codes    : ceil(n_sel * quant_bits / 32) words ]
+
+   each code ``(level << 1) | sign_bit`` at ``quant_bits = 1 +
+   ceil(log2(s+1))`` bits, LSB-first; s rides in the header's dtype word
+   (``code | s << 8``). ``decode`` returns the dequantized float32 values
+   (``dequantize_rows``, the one formula the sender and every receiver
+   apply), ``decode_quant`` the raw (norms, codes). The sign is stored
+   apart from the level, so a (-0.0, 0) padded slot (code 1) decodes to
+   -0.0. Quantizing is ``optim.qsgd.quantize_rows``.
+
+Not ported: ``transcode`` and the snapshot codec (absent; ROADMAP lists
+them).
 """
 from __future__ import annotations
 
@@ -43,6 +56,7 @@ import functools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 MAGIC = 0x53505257  # "SPRW"
@@ -55,14 +69,10 @@ _DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 _DTYPE_NAMES = {v: k for k, v in _DTYPE_CODES.items()}
 _KIND_CODES = {"sparse": 0, "dense": 1}
 _KIND_NAMES = {v: k for k, v in _KIND_CODES.items()}
+# quantization levels ride in the high bits of the header dtype word
+# (code | s << 8); capped so a code (sign bit + level) fits 16 bits
+_QUANT_MAX = (1 << 15) - 1
 _WORD = 1 << 32
-
-
-def _unported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} is not ported to the PyTorch port yet (the codec half of "
-        "repro.core.encoding is: accounting, WireSpec, encode/decode, "
-        "repack/repad)")
 
 
 # ---------------------------------------------------------------------------
@@ -97,7 +107,8 @@ def qsgd_bits(d: int, s: int) -> float:
 
 
 def quant_code_bits(s: int) -> int:
-    """Wire bits per quantized value: a sign bit plus a level in [0, s]."""
+    """Wire bits per quantized value: a sign bit plus a level in [0, s],
+    ``1 + ceil(log2(s+1))`` (s = 1: 2 bits, s = 15: 5)."""
     if s < 1:
         raise ValueError(f"quantization levels must be >= 1, got {s}")
     return 1 + max(1, math.ceil(math.log2(s + 1)))
@@ -117,11 +128,11 @@ def message_nbytes(rows: int, cols: int, k: int, value_dtype="float32",
                    wire: str = "unpacked", quant: Optional[int] = None) -> int:
     """Exact bytes one sparse (rows, cols, k) message puts on the wire: the
     packed ``WireSpec`` buffer's size, or the unpacked (value_dtype values,
-    int32 indices) pair arrays."""
-    if quant is not None:
-        raise _unported("the quantized wire tier (quant=)")
+    int32 indices) pair arrays. ``quant=s`` accounts the quantized tier on
+    the packed wire; the unpacked wire ships the dequantized values at
+    full width."""
     if wire == "packed":
-        return WireSpec(rows, cols, k, value_dtype).nbytes
+        return WireSpec(rows, cols, k, value_dtype, quant=quant).nbytes
     return rows * k * (value_bits(value_dtype) // 8 + 4)
 
 
@@ -136,7 +147,8 @@ class WireSpec:
 
     ``kind="sparse"``: k (value, row-local index) pairs per row.
     ``kind="dense"``: all cols values per row, no index section; ``k`` is
-    ignored. ``quant`` (the quantized tier) is not ported."""
+    ignored. ``quant=s``: the value section carries s-level codes and one
+    float32 row norm (sparse, float32 only)."""
 
     rows: int
     cols: int
@@ -154,7 +166,15 @@ class WireSpec:
         if self.kind == "sparse" and not 1 <= self.k <= self.cols:
             raise ValueError(f"k={self.k} out of range for cols={self.cols}")
         if self.quant is not None:
-            raise _unported("the quantized wire tier (WireSpec quant=)")
+            if self.kind != "sparse":
+                raise ValueError("quantized wire tier is sparse-only")
+            if self.value_dtype != "float32":
+                raise ValueError(
+                    "quantized wire tier carries f32 row norms; "
+                    f"value_dtype={self.value_dtype!r} is not composable")
+            if not 1 <= self.quant <= _QUANT_MAX:
+                raise ValueError(
+                    f"quant={self.quant} out of range [1, {_QUANT_MAX}]")
 
     @property
     def n_sel(self) -> int:
@@ -167,11 +187,24 @@ class WireSpec:
 
     @property
     def value_bits(self) -> int:
+        """Wire bits per value entry (code bits on the quantized tier)."""
+        if self.quant is not None:
+            return quant_code_bits(self.quant)
         return value_bits(self.value_dtype)
 
     @property
+    def code_words(self) -> int:
+        """uint32 words per row holding the packed quantized codes."""
+        if self.quant is None:
+            return 0
+        return -(-(self.n_sel * self.value_bits) // 32)
+
+    @property
     def value_words(self) -> int:
-        """uint32 words per row for the value section."""
+        """uint32 words per row for the value section (quantized tier: one
+        f32 norm word and the packed codes)."""
+        if self.quant is not None:
+            return 1 + self.code_words
         return -(-(self.n_sel * self.value_bits) // 32)
 
     @property
@@ -192,12 +225,22 @@ class WireSpec:
     def nbits(self) -> int:
         return 32 * self.words
 
+    def with_value_dtype(self, value_dtype: str) -> "WireSpec":
+        """The same layout with another wire value dtype (the index section
+        and k unchanged); a quantized spec has none other."""
+        if self.quant is not None:
+            raise ValueError(
+                "quantized wire messages have no alternate value dtype; "
+                "dequantize and re-encode instead")
+        return dataclasses.replace(self, value_dtype=value_dtype)
+
     def header(self, live_n: int = 0, device="cpu") -> torch.Tensor:
         """The HEADER_WORDS header words (uint32)."""
+        dtype_word = _DTYPE_CODES[self.value_dtype] | ((self.quant or 0) << 8)
         return _as_words(torch.tensor(
-            [MAGIC, VERSION, self.rows, self.cols, self.n_sel,
-             _DTYPE_CODES[self.value_dtype], _KIND_CODES[self.kind],
-             int(live_n)], dtype=torch.int64, device=device))
+            [MAGIC, VERSION, self.rows, self.cols, self.n_sel, dtype_word,
+             _KIND_CODES[self.kind], int(live_n)], dtype=torch.int64,
+            device=device))
 
     @classmethod
     def from_header(cls, buf) -> "WireSpec":
@@ -207,11 +250,9 @@ class WireSpec:
         if h[0] != MAGIC or h[1] != VERSION:
             raise ValueError(
                 f"bad wire header magic/version {h[0]:#x}/{h[1]}")
-        if h[5] >> 8:
-            raise _unported("the quantized wire tier (a quant header)")
         return cls(rows=h[2], cols=h[3], k=h[4],
                    value_dtype=_DTYPE_NAMES[h[5] & 0xFF],
-                   kind=_KIND_NAMES[h[6]])
+                   kind=_KIND_NAMES[h[6]], quant=(h[5] >> 8) or None)
 
 
 @functools.lru_cache(maxsize=64)
@@ -301,20 +342,70 @@ def _unpack_values(spec: WireSpec, packed: torch.Tensor) -> torch.Tensor:
     return u16.to(torch.int16).view(torch.bfloat16)
 
 
+def dequantize_rows(norms: torch.Tensor, codes: torch.Tensor,
+                    s: int) -> torch.Tensor:
+    """The quantized tier's dequantization: codes ``(level << 1) | sign``
+    -> ``+-norm * level / s`` per row, float32. The sender's own
+    contribution and every receiver's decode apply this one formula, so
+    the memory absorbs exactly the quantization error that ships. Code 1
+    (level 0, sign 1) gives -0.0: the padded tail's identity survives.
+
+    The product is the reference's as its sync computes it, compiled:
+    XLA turns its ``norm * (level / s)`` into ``(norm * float32(1/s)) *
+    level`` (the divide by the constant a multiply by its reciprocal,
+    moved onto the norm), two float32 products, each rounded, on either
+    device."""
+    recip = float(np.float32(1.0 / s))
+    scale = torch.mul(norms.to(torch.float32), recip).unsqueeze(-1)
+    codes = codes.to(torch.int32)
+    mag = torch.mul(scale, (codes >> 1).to(torch.float32))
+    return torch.where((codes & 1).to(torch.bool), -mag, mag)
+
+
+def _pack_values_quant(spec: WireSpec, codes: torch.Tensor,
+                       norms: torch.Tensor) -> torch.Tensor:
+    """(R, n_sel) codes and (R,) norms -> (R, value_words) uint32: the
+    norm's float32 bits, then the LSB-first packed code stream."""
+    nw = norms.to(torch.float32).contiguous().view(torch.int32).view(
+        torch.uint32).unsqueeze(1)
+    cw = _pack_bits(codes, spec.value_bits, spec.code_words)
+    return torch.cat([nw, cw], dim=1)
+
+
+def _unpack_values_quant(spec: WireSpec, packed: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of ``_pack_values_quant`` -> (norms (R,) float32, codes (R,
+    n_sel) int32)."""
+    norms = packed[:, 0].contiguous().view(torch.int32).view(torch.float32)
+    codes = _unpack_bits(packed[:, 1:], spec.value_bits, spec.n_sel)
+    return norms, codes.to(torch.int32)
+
+
 def encode(spec: WireSpec, vals: torch.Tensor,
            idx: Optional[torch.Tensor] = None, live_n: Optional[int] = None,
            norms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(values (rows, n_sel), indices (rows, k)) -> flat uint32 wire buffer
     of exactly ``spec.words`` words, on the values' device. For
     ``kind="dense"`` pass the (rows, cols) values only. ``live_n`` stamps
-    the live entry count into header word ``LIVE_N_WORD``."""
+    the live entry count into header word ``LIVE_N_WORD``. On the
+    quantized tier ``vals`` are the integer CODES and ``norms`` the (rows,)
+    float32 row norms."""
     if tuple(vals.shape) != (spec.rows, spec.n_sel):
         raise ValueError(
             f"values shape {tuple(vals.shape)} != {(spec.rows, spec.n_sel)}")
-    if norms is not None:
-        raise _unported("norms (the quantized wire tier)")
+    if spec.quant is not None:
+        if norms is None:
+            raise ValueError("quantized wire message needs row norms")
+        if tuple(norms.shape) != (spec.rows,):
+            raise ValueError(
+                f"norms shape {tuple(norms.shape)} != {(spec.rows,)}")
+        packed_vals = _pack_values_quant(spec, vals, norms)
+    elif norms is not None:
+        raise ValueError("norms only apply to the quantized tier")
+    else:
+        packed_vals = _pack_values(spec, vals)
     sections = [_header_on(spec, int(live_n or 0), vals.device),
-                _pack_values(spec, vals).reshape(-1)]
+                packed_vals.reshape(-1)]
     if spec.kind == "sparse":
         if idx is None:
             raise ValueError("sparse wire message needs indices")
@@ -330,7 +421,8 @@ def decode(spec: WireSpec, buf: torch.Tensor
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Inverse of ``encode``: wire buffer (uint32 or its int32 view) ->
     (values (rows, n_sel) in the wire dtype, indices (rows, k) int32, or
-    None for dense messages).
+    None for dense messages). The quantized tier's values come back
+    dequantized (float32).
 
     A buffer on the CPU has its dynamic header word checked: a live_n
     above the n_sel laid-out slots raises. A buffer on the card skips the
@@ -347,15 +439,40 @@ def decode(spec: WireSpec, buf: torch.Tensor
                 f"{spec.n_sel} laid-out slots per row")
     off = HEADER_WORDS
     nv = spec.rows * spec.value_words
-    vals = _unpack_values(spec, buf[off:off + nv].reshape(
-        spec.rows, spec.value_words))
+    packed_vals = buf[off:off + nv].reshape(spec.rows, spec.value_words)
+    if spec.quant is not None:
+        vals = dequantize_rows(*_unpack_values_quant(spec, packed_vals),
+                               spec.quant)
+    else:
+        vals = _unpack_values(spec, packed_vals)
     if spec.kind == "dense":
         return vals, None
+    return vals, _indices(spec, buf)
+
+
+def _indices(spec: WireSpec, buf: torch.Tensor) -> torch.Tensor:
+    """The (rows, k) int32 indices of a sparse buffer's index section."""
+    off = HEADER_WORDS + spec.rows * spec.value_words
     ni = spec.rows * spec.index_words
-    packed_idx = buf[off + nv:off + nv + ni].reshape(
-        spec.rows, spec.index_words)
-    idx = _unpack_bits(packed_idx, spec.index_bits, spec.k)
-    return vals, idx.to(torch.int32)
+    packed_idx = buf[off:off + ni].reshape(spec.rows, spec.index_words)
+    return _unpack_bits(packed_idx, spec.index_bits, spec.k).to(torch.int32)
+
+
+def decode_quant(spec: WireSpec, buf: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The quantized tier's raw reader: wire buffer -> (norms (rows,)
+    float32, codes (rows, k) int32, indices (rows, k) int32), without
+    dequantizing (the repack transport and the tests read the codes)."""
+    if spec.quant is None:
+        raise ValueError("decode_quant wants a quantized WireSpec")
+    if tuple(buf.shape) != (spec.words,):
+        raise ValueError(f"buffer shape {tuple(buf.shape)} != {(spec.words,)}")
+    buf = buf.view(torch.uint32) if buf.dtype == torch.int32 else buf
+    off = HEADER_WORDS
+    nv = spec.rows * spec.value_words
+    norms, codes = _unpack_values_quant(
+        spec, buf[off:off + nv].reshape(spec.rows, spec.value_words))
+    return norms, codes, _indices(spec, buf)
 
 
 def live_n_of(buf) -> Optional[int]:
@@ -411,6 +528,10 @@ def repack(spec: WireSpec, buf: torch.Tensor, live_n: Optional[int] = None
     if live_n >= spec.n_sel:
         return spec, buf
     small = repack_spec(spec, live_n)
+    if spec.quant is not None:
+        norms, codes, idx = decode_quant(spec, buf)
+        return small, encode(small, codes[:, :small.k], idx[:, :small.k],
+                             live_n=live_n, norms=norms)
     vals, idx = decode(spec, buf)
     return small, encode(small, vals[:, :small.k], idx[:, :small.k],
                          live_n=live_n)
@@ -433,8 +554,20 @@ def repad(spec: WireSpec, small_spec: WireSpec,
     if small_spec.k > spec.n_sel:
         raise ValueError(
             f"repacked k={small_spec.k} exceeds padded n_sel={spec.n_sel}")
+    if small_spec.quant != spec.quant:
+        raise ValueError(f"repacked quant tier {small_spec.quant} does not "
+                         f"match {spec.quant}")
     raw_live = _host_header(small_buf)[LIVE_N_WORD]
     pad = spec.n_sel - small_spec.k
+    if spec.quant is not None:
+        norms, codes, idx = decode_quant(small_spec, small_buf)
+        # code 1 = (level 0, sign 1): dequantizes to the -0.0 identity
+        codes = torch.cat([codes, torch.ones((spec.rows, pad),
+                                             dtype=torch.int32,
+                                             device=codes.device)], dim=1)
+        idx = torch.cat([idx, torch.zeros((spec.rows, pad), dtype=torch.int32,
+                                          device=idx.device)], dim=1)
+        return encode(spec, codes, idx, live_n=raw_live, norms=norms)
     vals, idx = decode(small_spec, small_buf)
     vals = torch.cat([vals, torch.full((spec.rows, pad), -0.0,
                                        dtype=vals.dtype, device=vals.device)],

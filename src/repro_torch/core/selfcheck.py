@@ -22,9 +22,14 @@ keys.
   the bytes it ships equal ``encoding.message_nbytes`` at the live k and
   the sparse cross-pod term of ``bucketed_message_bytes(pod_ks=)``.
 
+* ``local_quant_selfcheck``: the Qsparse-local-SGD invariants: the
+  local-step accumulator at H = 1 bitwise the direct sync on the flat,
+  two-level and runtime-k paths; under the quantized wire mass
+  conservation, packed == unpacked bit for bit and the realized bytes
+  equal to the accounting; ``amortized_bytes_per_step`` exactly 1/H.
+
 The reference's ``two_level_selfcheck`` and ``dynamic_k_selfcheck`` hold
-paths the port's tests hold already; ``local_quant_selfcheck`` needs the
-quantized wire, which the port does not run yet.
+paths the port's tests hold already.
 """
 from __future__ import annotations
 
@@ -37,7 +42,11 @@ from repro_torch.core import buckets as bk
 from repro_torch.core import encoding as enc
 from repro_torch.core import pipeline
 from repro_torch.core.distributed import (
+    PodConfig,
     SyncConfig,
+    WireConfig,
+    _all_gather,
+    amortized_bytes_per_step,
     bucketed_message_bytes,
     bucketed_sync_gradients,
     distributed,
@@ -128,6 +137,25 @@ def _chained(cfg, layout, tree, plan, grads, mem, eta, schedule):
     return applied, mem
 
 
+def _paths(plan, ratio: float, wire: str, quant=None) -> dict:
+    """The three bucketed sync paths on the tiny plan: flat over every
+    worker, static two-level (the sparse bucket's pod ratio 0.1), runtime
+    k (pod ratio 9 / COLS, the k_max-padded chain)."""
+    base = dict(ratio=ratio, bucketed=True, bucket_cols=COLS,
+                wire=WireConfig(wire=wire, quant=quant))
+    return {
+        "flat": SyncConfig(strategy="sparse_allgather",
+                           pod=PodConfig(axis="pod"), **base),
+        "hierarchical": SyncConfig(
+            strategy="hierarchical",
+            pod=PodConfig(axis="pod", ratios=_ratios(plan, 0.1)), **base),
+        "pod_dynamic": SyncConfig(
+            strategy="hierarchical",
+            pod=PodConfig(axis="pod", ratios=_ratios(plan, 9 / COLS),
+                          dynamic=True), **base),
+    }
+
+
 def overlap_selfcheck(layout, ratio: float = 0.05, eta: float = 0.3,
                       wire: str = "packed", device="cpu") -> dict:
     """The pipelined schedule's bit identity on ``layout``: for each sync
@@ -135,21 +163,12 @@ def overlap_selfcheck(layout, ratio: float = 0.05, eta: float = 0.3,
     between two chained steps), overlap None, False and True give
     bitwise equal applied params and memory on every rank."""
     tree, plan, grads, mem0 = _probe(layout, device)
-    base = dict(ratio=ratio, pod_axis="pod", bucketed=True, bucket_cols=COLS,
-                wire=wire)
-    paths = {
-        "flat": (SyncConfig(strategy="sparse_allgather", **base), [None]),
-        "hierarchical": (SyncConfig(strategy="hierarchical",
-                                    pod_ratios=_ratios(plan, 0.1), **base),
-                         [None]),
-        "pod_dynamic": (SyncConfig(strategy="hierarchical",
-                                   pod_ratios=_ratios(plan, 9 / COLS),
-                                   pod_dynamic=True, **base),
-                        [_pod_ks(plan, 9), _pod_ks(plan, 4)]),
-    }
+    paths = {name: (cfg, [_pod_ks(plan, 9), _pod_ks(plan, 4)]
+                    if name == "pod_dynamic" else [None])
+             for name, cfg in _paths(plan, ratio, wire).items()}
     out = {}
     for name, (cfg, schedule) in paths.items():
-        runs = [_chained(dataclasses.replace(cfg, overlap=ov), layout, tree,
+        runs = [_chained(cfg.with_transport(overlap=ov), layout, tree,
                          plan, grads, mem0, eta, schedule)
                 for ov in OVERLAPS]
         out[f"{name}_bitwise"] = _every_rank(
@@ -176,11 +195,10 @@ def repack_selfcheck(layout, ratio: float = 0.05, eta: float = 0.3,
     * **padded_vs_live_bytes**: the (padded, live) cross-pod bytes of the
       sparse bucket, the gap the transport closes."""
     tree, plan, grads, mem0 = _probe(layout, device)
-    dyn = SyncConfig(ratio=ratio, strategy="hierarchical", pod_axis="pod",
-                     bucketed=True, bucket_cols=COLS, wire="packed",
-                     pod_ratios=_ratios(plan, ks[0] / COLS), pod_dynamic=True)
+    dyn = _paths(plan, ratio, "packed")["pod_dynamic"].with_pod(
+        ratios=_ratios(plan, ks[0] / COLS))
     schedule = [_pod_ks(plan, k) for k in ks]
-    runs = [_chained(dataclasses.replace(dyn, repack=rp, overlap=ov), layout,
+    runs = [_chained(dyn.with_transport(repack=rp, overlap=ov), layout,
                      tree, plan, grads, mem0, eta, schedule)
             for rp in (False, True) for ov in OVERLAPS]
     repack_bitwise = _every_rank(
@@ -216,4 +234,89 @@ def repack_selfcheck(layout, ratio: float = 0.05, eta: float = 0.3,
         "transport_roundtrip_bitwise": roundtrip,
         "transport_accounting_exact": bool(acc_ok),
         "padded_vs_live_bytes": [wspec.nbytes, live_bytes],
+    }
+
+
+def local_quant_selfcheck(layout, ratio: float = 0.05, eta: float = 0.3,
+                          quant: int = 15, hs=(2, 4, 8),
+                          device="cpu") -> dict:
+    """The Qsparse-local-SGD invariants on ``layout``, on the tiny tree:
+
+    * **h1_accum_bitwise**: the local-step accumulator path
+      (``buckets.init_local_accum`` + ``accumulate_local`` at eta, then the
+      sync of the accumulator through ``grad_bufs=`` at eta 1.0) gives the
+      direct sync's update and memory bit for bit at H = 1, on the flat,
+      the two-level and the runtime-k (``pod_dynamic``) paths: ``1.0 *
+      (0 + eta*g)`` is ``eta*g``;
+    * **quant_conservation_max_err**: under ``WireConfig.quant``, the
+      largest |mean_w(u) - (update + mean_w(m'))| over both buckets, flat
+      and two-level (float-sum association is the only slack: the memory
+      keeps the quantization error);
+    * **quant_bit_identical**: packed and unpacked wires give the same
+      update and memory bit for bit (both densify
+      ``encoding.dequantize_rows`` of the same codes);
+    * **quant_accounting_exact**: the realized bytes equal
+      ``bucketed_message_bytes`` of the quantized config;
+    * **amortized_ratio_exact**: ``amortized_bytes_per_step`` is exactly
+      the sync's bytes / H for every H in ``hs``.
+
+    The rounding noise is ``QuantNoise(5, 0)`` (the reference's check
+    keys it with PRNGKey(5))."""
+    from repro_torch.optim.qsgd import QuantNoise
+
+    noise = QuantNoise(5, 0)
+    tree, plan, grads, mem0 = _probe(layout, device)
+    realized = {}
+
+    def run(cfg, accumulate=False, pod_ks=None, tag=None):
+        kw = dict(layout=layout, pod_ks=pod_ks)
+        if cfg.quant is not None:
+            kw["quant_noise"] = noise
+        mem = [m.clone() for m in mem0]
+        if accumulate:
+            acc = bk.accumulate_local(plan, bk.init_local_accum(
+                plan, device=device), grads, eta)
+            upd, mem, nbytes = bucketed_sync_gradients(
+                cfg, plan, mem, None, 1.0, grad_bufs=acc, **kw)
+        else:
+            upd, mem, nbytes = bucketed_sync_gradients(cfg, plan, mem, grads,
+                                                       eta, **kw)
+        if tag is not None:
+            realized[tag] = nbytes
+        return [upd[k] for k in sorted(upd)], list(mem)
+
+    h1_ok = True
+    for name, cfg in _paths(plan, ratio, "packed").items():
+        pk = _pod_ks(plan, 9) if name == "pod_dynamic" else None
+        h1_ok = h1_ok and bitwise_equal(run(cfg, pod_ks=pk),
+                                        run(cfg, accumulate=True, pod_ks=pk))
+
+    cons_err, bit_ok, acc_ok = 0.0, True, True
+    g_bufs = bk.pack(plan, grads, dtype=torch.float32)
+    u = [torch.add(m, torch.mul(g, float(np.float32(eta))))
+         for m, g in zip(mem0, g_bufs)]
+    for name in ("flat", "hierarchical"):
+        cfgs = {w: _paths(plan, ratio, w, quant)[name]
+                for w in ("packed", "unpacked")}
+        out_p = run(cfgs["packed"], tag=name)
+        bit_ok = bit_ok and bitwise_equal(out_p, run(cfgs["unpacked"]))
+        acc_ok = acc_ok and realized[name] == bucketed_message_bytes(
+            cfgs["packed"], plan)
+        upd_bufs = bk.pack(plan, dict(zip(sorted(tree), out_p[0])),
+                           dtype=torch.float32)
+        for b in range(len(plan.buckets)):
+            lhs = _all_gather(u[b]).mean(0)
+            rhs = upd_bufs[b] + _all_gather(out_p[1][b]).mean(0)
+            cons_err = max(cons_err, float(torch.max(torch.abs(lhs - rhs))))
+
+    q = _paths(plan, ratio, "packed", quant)["flat"]
+    full = bucketed_message_bytes(q, plan)
+    ratio_ok = all(amortized_bytes_per_step(
+        dataclasses.replace(q, local_steps=h), plan) == full / h for h in hs)
+    return {
+        "h1_accum_bitwise": _every_rank(h1_ok, device),
+        "quant_conservation_max_err": cons_err,
+        "quant_bit_identical": _every_rank(bit_ok, device),
+        "quant_accounting_exact": _every_rank(acc_ok, device),
+        "amortized_ratio_exact": _every_rank(ratio_ok, device),
     }

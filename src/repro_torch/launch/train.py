@@ -69,11 +69,15 @@ import torch
 from repro_torch.configs.base import PodRefreshConfig
 from repro_torch.core import buckets as bk
 from repro_torch.core.distributed import (
+    PodConfig,
     SyncConfig,
+    TransportConfig,
+    WireConfig,
     _all_gather,
     _densify_mean,
     _exchange,
     _mean,
+    amortized_bytes_per_step,
     autotune_pod_ratios,
     bucketed_message_bytes,
     bucketed_sync_gradients,
@@ -88,6 +92,7 @@ from repro_torch.kernels.ref import eta32
 from repro_torch.launch.mesh import pod_axis_of
 from repro_torch.launch.sharding import sync_col_axes
 from repro_torch.optim.adam import bias_correction
+from repro_torch.optim.qsgd import QuantNoise
 from repro_torch.utils.platform import resolve_device
 from repro_torch.utils.telemetry import NonFiniteLossError, Telemetry
 from repro_torch.utils.tree import tree_flatten, tree_map
@@ -104,10 +109,16 @@ class TrainConfig:
     eta_shift: float = 0.0  # a>0 enables eta_t = eta*a/(a + t) decay
     momentum: float = 0.9
     sync: SyncConfig = dataclasses.field(default_factory=SyncConfig)
+    # the gradient as the mean of this many chunks of the local batch
+    microbatch: int = 1
     # the two-level pod sync: calibrate per-bucket pod ratios on the first
     # batch when sync.pod_ratios is unset, and the live refresh
     pod_autotune: bool = True
     pod_refresh: Optional[PodRefreshConfig] = None
+    # the seed of the QSGD rounding noise (WireConfig.quant): each sync
+    # draws from QuantNoise(quant_seed, count), so two runs with one seed
+    # draw the same noise
+    quant_seed: int = 0
 
 
 def _eta_schedule(tc: TrainConfig):
@@ -131,7 +142,8 @@ def _sync_config(tc: TrainConfig, layout=None) -> SyncConfig:
     strategy = "dense" if tc.optimizer == "dense" else tc.sync.strategy
     pod_axis = (pod_axis_of(layout) if layout is not None
                 else tc.sync.pod_axis)
-    return dataclasses.replace(tc.sync, strategy=strategy, pod_axis=pod_axis)
+    return dataclasses.replace(tc.sync.with_pod(axis=pod_axis),
+                               strategy=strategy)
 
 
 def _bucket_plan(sync: SyncConfig, pshapes):
@@ -226,13 +238,35 @@ def _mean_metrics(metrics):
     return out
 
 
-def _grads(model, params, batch):
+def _grads(model, params, batch, microbatch: int = 1):
     """(gradient leaves, metrics) of the model's loss on ``batch``, by
-    autograd through detached copies of the parameter leaves."""
+    autograd through detached copies of the parameter leaves. With
+    ``microbatch`` M > 1 the batch splits into M chunks along its first
+    axis and the gradient is their float32 mean, each chunk's added as
+    ``c + g / M`` in chunk order (the reference's scan), the metrics
+    the chunks' means."""
     leaves, treedef = tree_flatten(params)
     live = [p.detach().requires_grad_(True) for p in leaves]
-    loss, metrics = model.loss(treedef.unflatten(live), batch)
-    return torch.autograd.grad(loss, live), metrics
+    if microbatch <= 1:
+        loss, metrics = model.loss(treedef.unflatten(live), batch)
+        return torch.autograd.grad(loss, live), metrics
+    M = microbatch
+    B = next(iter(batch.values())).shape[0]
+    if B % M:
+        raise ValueError(f"a batch of {B} does not split into microbatch={M} "
+                         "chunks")
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for p in leaves]
+    mets = []
+    for c in range(M):
+        chunk = {k: v[c * (B // M):(c + 1) * (B // M)]
+                 for k, v in batch.items()}
+        loss, met = model.loss(treedef.unflatten(live), chunk)
+        for a, g in zip(acc, torch.autograd.grad(loss, live)):
+            a.add_(torch.div(g.to(torch.float32), M))
+        mets.append(met)
+    return acc, {k: torch.stack([torch.as_tensor(m[k]).detach().to(
+        torch.float32) for m in mets]).mean(0) for k in mets[0]}
 
 
 def make_train_step(model, tc: TrainConfig, layout=None):
@@ -245,7 +279,23 @@ def make_train_step(model, tc: TrainConfig, layout=None):
 
     With ``sync.pod_dynamic`` the step takes a sixth argument, ``pod_ks``:
     one live pod k per bucket (host ints). ``step.pod_k_max`` holds each
-    bucket's static padded ceiling."""
+    bucket's static padded ceiling.
+
+    With ``sync.local_steps`` = H > 1 (Qsparse-local-SGD, bucketed only)
+    the state gains the bucket-space accumulator ``acc``
+    (``buckets.init_local_accum``) after the memory,
+
+        (params, memory, acc, opt, count, batch) -> (... the same ...)
+
+    and ``step.accum`` is the local step: ``acc += eta_t * pack(g_t)``
+    (``buckets.accumulate_local``), no gradient exchange, params, memory
+    and opt untouched. The returned ``step`` is the sync step: it folds
+    its own gradient into acc the same way, syncs u = m + acc through
+    ``bucketed_sync_gradients(grad_bufs=acc)`` at eta 1.0 and zeroes acc
+    in place. Call ``step.accum`` H - 1 times, then ``step``
+    (``step.local_steps`` is H). At H = 1 the per-step path is unchanged.
+    Under ``sync.quant`` each sync draws its rounding noise from
+    ``QuantNoise(tc.quant_seed, count)``."""
     sync = _sync_config(tc, layout)
     pshapes = model.param_shapes()
     plan = _bucket_plan(sync, pshapes)
@@ -253,6 +303,11 @@ def make_train_step(model, tc: TrainConfig, layout=None):
     if sync.strategy == "hierarchical" and sync.pod_axis and layout is None:
         raise ValueError("the two-level sync (a pod_axis) needs a (pod, "
                          "data) layout: pass layout=")
+    H = sync.local_steps
+    if H > 1 and plan is None:
+        raise ValueError(
+            "sync.local_steps > 1 requires sync.bucketed (the local "
+            "accumulator lives in bucket space)")
     col_axes = sync_col_axes(pshapes)
     pod_k_max = None
     if sync.pod_dynamic:
@@ -265,13 +320,17 @@ def make_train_step(model, tc: TrainConfig, layout=None):
                 else eta_fn)
     apply_optimizer = make_apply_optimizer(tc, eta_fn)
 
+    def noise(count):
+        return (QuantNoise(tc.quant_seed, count) if sync.quant is not None
+                else None)
+
     def step(params, memory, opt, count, batch, pod_ks=None):
         leaves, treedef = tree_flatten(params)
-        grads, metrics = _grads(model, params, batch)
+        grads, metrics = _grads(model, params, batch, tc.microbatch)
         if plan is not None:
             update, new_memory, _ = bucketed_sync_gradients(
                 sync, plan, memory, treedef.unflatten(grads), sync_eta(count),
-                layout=layout, pod_ks=pod_ks)
+                layout=layout, pod_ks=pod_ks, quant_noise=noise(count))
         else:
             update, new_memory, _ = sparse_sync_gradients(
                 sync, memory, treedef.unflatten(grads), sync_eta(count),
@@ -282,8 +341,32 @@ def make_train_step(model, tc: TrainConfig, layout=None):
                                   treedef.flatten_up_to(update))
         return params, new_memory, opt, count + 1, _mean_metrics(metrics)
 
+    def accum(params, memory, acc, opt, count, batch):
+        treedef = tree_flatten(params)[1]
+        grads, metrics = _grads(model, params, batch, tc.microbatch)
+        acc = bk.accumulate_local(plan, acc, treedef.unflatten(grads),
+                                  sync_eta(count))
+        return params, memory, acc, opt, count + 1, _mean_metrics(metrics)
+
+    def sync_step(params, memory, acc, opt, count, batch, pod_ks=None):
+        leaves, treedef = tree_flatten(params)
+        params, memory, acc, opt, _, metrics = accum(params, memory, acc,
+                                                     opt, count, batch)
+        update, new_memory, _ = bucketed_sync_gradients(
+            sync, plan, memory, None, 1.0, layout=layout, pod_ks=pod_ks,
+            grad_bufs=acc, quant_noise=noise(count))
+        for a in acc:
+            a.zero_()
+        with torch.no_grad():
+            opt = apply_optimizer(leaves, opt, count,
+                                  treedef.flatten_up_to(update))
+        return params, new_memory, acc, opt, count + 1, metrics
+
+    if H > 1:
+        step = sync_step
+        step.accum = accum
     step.sync, step.plan, step.col_axes = sync, plan, col_axes
-    step.layout, step.pod_k_max = layout, pod_k_max
+    step.layout, step.pod_k_max, step.local_steps = layout, pod_k_max, H
     return step
 
 
@@ -315,9 +398,10 @@ class PodRatioCalibrator:
     def __init__(self, model, plan, layout, sync: SyncConfig):
         self.model, self.plan, self.layout = model, plan, layout
         self.sync = sync  # k_row and the allocation's target and budget
-        # the shards' selections move as float32 pairs at any wire dtype:
-        # the reference forms its shard measurement in float32
-        self._wire = dataclasses.replace(sync, value_dtype="float32")
+        # the shards' selections move as float32 pairs at any wire dtype
+        # and unquantized: the reference forms its shard measurement in
+        # float32
+        self._wire = sync.with_wire(value_dtype="float32", quant=None)
 
     def _u(self, params, batch, eta, memory):
         """Per sparse bucket u = eta * g (+ memory) on ``batch``; None for
@@ -425,11 +509,9 @@ def _maybe_autotune_pod_ratios(model, layout, tc: TrainConfig, plan, params,
     sync = _sync_config(tc, layout)
     calib = calib or PodRatioCalibrator(model, plan, layout, sync)
     ratios = calib.ratios(params, first, tc.eta)
-    tc = dataclasses.replace(
-        tc, sync=dataclasses.replace(tc.sync, pod_ratios=ratios))
-    lv = bucketed_message_bytes(
-        dataclasses.replace(sync, pod_ratios=ratios), plan, by_level=True,
-        n_data=layout.n_data)
+    tc = dataclasses.replace(tc, sync=tc.sync.with_pod(ratios=ratios))
+    lv = bucketed_message_bytes(sync.with_pod(ratios=ratios), plan,
+                                by_level=True, n_data=layout.n_data)
     if _rank() == 0:
         print("pod autotune: ratios=" + ",".join(f"{r:.4g}" for r in ratios)
               + f"  intra-pod {lv['intra']}B cross-pod {lv['cross']}B "
@@ -440,15 +522,17 @@ def _maybe_autotune_pod_ratios(model, layout, tc: TrainConfig, plan, params,
 def _telemetry_bytes(model, step, pod_ks=None) -> dict:
     """Per-step wire accounting for the telemetry sink: ``{"intra",
     "cross", "total"}`` on a pod layout (``pod_ks``: the live ks, as the
-    repack transport ships them), else ``{"total"}``."""
+    repack transport ships them), else ``{"total"}``; on the bucketed
+    path ``amortized_bytes_per_step`` (a step's share of the sync's bytes
+    under local steps)."""
     if step.plan is None:
         return {"total": message_bytes(step.sync, model.param_shapes(),
                                        step.col_axes)}
     if pod_axis_of(step.layout) is not None:
-        return bucketed_message_bytes(step.sync, step.plan, by_level=True,
-                                      n_data=step.layout.n_data,
-                                      pod_ks=pod_ks)
-    return {"total": bucketed_message_bytes(step.sync, step.plan)}
+        return amortized_bytes_per_step(step.sync, step.plan, by_level=True,
+                                        n_data=step.layout.n_data,
+                                        pod_ks=pod_ks)
+    return {"total": amortized_bytes_per_step(step.sync, step.plan)}
 
 
 def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
@@ -476,15 +560,22 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
     ``(step, ks)``,
     REPLAYS a recorded schedule instead of calibrating: a run fed the
     refreshed run's ``telemetry.refresh_schedule`` reproduces it bit for
-    bit."""
+    bit.
+
+    Qsparse-local-SGD (``sync.local_steps`` = H > 1): step i syncs when
+    (i + 1) % H == 0 (round j = i // H) and only accumulates otherwise
+    (``step.accum``); a pod refresh runs on sync steps, at rounds j > 0
+    with j % ``pod_refresh.every`` == 0, calibrating on m + acc (what the
+    sync compresses); the telemetry's bytes are a step's share of the
+    sync's (``amortized_bytes_per_step``)."""
     device = resolve_device(device)
     refresh = tc.pod_refresh if (
         tc.pod_refresh is not None and tc.pod_refresh.enabled) else None
     if refresh is not None or pod_k_schedule is not None:
-        kw = {"pod_dynamic": True}
+        kw = {"dynamic": True}
         if refresh is not None and refresh.k_max_ratio is not None:
-            kw["pod_k_max_ratio"] = refresh.k_max_ratio
-        tc = dataclasses.replace(tc, sync=dataclasses.replace(tc.sync, **kw))
+            kw["k_max_ratio"] = refresh.k_max_ratio
+        tc = dataclasses.replace(tc, sync=tc.sync.with_pod(**kw))
     plan = _bucket_plan(tc.sync, model.param_shapes())
     dyn = tc.sync.pod_dynamic
     if dyn and (plan is None or tc.sync.strategy != "hierarchical"
@@ -500,6 +591,8 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
     tc, batches = _maybe_autotune_pod_ratios(model, layout, tc, plan, params,
                                              batches, calib=calib)
     step = make_train_step(model, tc, layout)
+    H = step.local_steps
+    acc = bk.init_local_accum(plan, device=device) if H > 1 else None
     eta_fn = _eta_schedule(tc)
     tel_owned = telemetry is None
     tel = telemetry if telemetry is not None else Telemetry()
@@ -535,6 +628,7 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
             history.append((idx, loss))
 
     for i, batch in enumerate(take(batches, n_steps)):
+        j, is_sync = i // H, (i + 1) % H == 0
         if dyn and sched is not None and i in sched:
             # clamped here, so that the recorded schedule and the bytes
             # describe the ks the wire carries
@@ -542,28 +636,39 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
                             for k, c in zip(sched[i], step.pod_k_max))
             tel.pod_refresh(i, live_ks)
             bytes_live = _telemetry_bytes(model, step, live_ks)
-        elif (dyn and sched is None and refresh is not None and i > 0
-              and i % refresh.every == 0):
+        elif (dyn and sched is None and refresh is not None and is_sync
+              and j > 0 and j % refresh.every == 0):
             # at the eta the step applies (adam_compressed's memory takes
-            # raw gradients: 1.0), on the state before step i
+            # raw gradients: 1.0), on the state before step i; at H > 1
+            # the sync compresses m + acc (+ eta*g)
             eta_now = (eta_fn(i) if tc.optimizer != "adam_compressed"
                        else 1.0)
             ratios = calib.ratios(
-                params, batch, eta_now, memory,
+                params, batch, eta_now, memory if acc is None else
+                [torch.add(m, a) for m, a in zip(memory, acc)],
                 mass_target=refresh.mass_target, k_caps=step.pod_k_max,
                 byte_budget=refresh.byte_budget)
             live_ks = tuple(int(round(r * s.cols)) if s.kind == "sparse"
                             else 1 for r, s in zip(ratios, plan.buckets))
             bytes_live = _telemetry_bytes(model, step, live_ks)
+            cross = bucketed_message_bytes(
+                step.sync, plan, by_level=True, n_data=layout.n_data,
+                pod_ks=live_ks)["cross"]
             if _rank() == 0:
                 print(f"pod refresh @ step {i}: ks="
                       + ",".join(str(k) for k in live_ks)
-                      + f"  effective cross-pod {bytes_live['cross']}B "
-                      "/step/worker")
-            tel.pod_refresh(i, live_ks, cross_bytes=bytes_live["cross"])
+                      + f"  effective cross-pod {cross}B /step/worker")
+            tel.pod_refresh(i, live_ks, cross_bytes=cross)
         args = (live_ks,) if dyn else ()
-        params, memory, opt, count, metrics = step(params, memory, opt,
-                                                   count, batch, *args)
+        if H == 1:
+            params, memory, opt, count, metrics = step(params, memory, opt,
+                                                       count, batch, *args)
+        elif is_sync:
+            params, memory, acc, opt, count, metrics = step(
+                params, memory, acc, opt, count, batch, *args)
+        else:
+            params, memory, acc, opt, count, metrics = step.accum(
+                params, memory, acc, opt, count, batch)
         do_log = bool(log_every and (i % log_every == 0 or i == n_steps - 1))
         if pending is not None:
             _drain(pending)
@@ -579,8 +684,9 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
 
 
 # the CLI's sync flags that a preset takes as overrides: flag -> field
-_OVERRIDES = (("ratio", "ratio"), ("strategy", "strategy"), ("wire", "wire"),
-              ("pod_ratio", "pod_ratio"),
+_OVERRIDES = (("ratio", "ratio"), ("strategy", "strategy"),
+              ("local_steps", "local_steps"), ("wire", "wire"),
+              ("wire_quant", "quant"), ("pod_ratio", "pod_ratio"),
               ("pod_mass_target", "pod_mass_target"),
               ("pod_k_max_ratio", "pod_k_max_ratio"),
               ("byte_budget", "byte_budget"), ("repack", "repack"),
@@ -593,9 +699,11 @@ def _sync_from_args(ap, args) -> SyncConfig:
     """The sync config of the CLI. With ``--preset`` the named
     ``SyncConfig.preset`` bundle is the base and only flags given
     explicitly (other than their default) override it, as the reference's
-    ``_sync_from_args`` does. ``--pod-refresh-every`` implies the bucketed
-    path."""
-    bucketed = args.bucketed or args.pod_refresh_every > 0
+    ``_sync_from_args`` does; without one, every flag lands in the
+    grouped configs. ``--pod-refresh-every``, ``--local-steps`` above 1
+    and ``--wire-quant`` imply the bucketed path."""
+    bucketed = (args.bucketed or args.pod_refresh_every > 0
+                or args.local_steps > 1 or args.wire_quant is not None)
     fields = {field: getattr(args, flag) for flag, field in _OVERRIDES}
     fields["overlap"] = _OVERLAP[args.overlap]
     if args.preset is not None:
@@ -604,7 +712,16 @@ def _sync_from_args(ap, args) -> SyncConfig:
         if bucketed:
             overrides["bucketed"] = True
         return SyncConfig.preset(args.preset, **overrides)
-    return SyncConfig(bucketed=bucketed, **fields)
+    return SyncConfig(
+        ratio=args.ratio, strategy=args.strategy,
+        local_steps=args.local_steps, bucketed=bucketed,
+        wire=WireConfig(wire=args.wire, quant=args.wire_quant),
+        pod=PodConfig(ratio=args.pod_ratio,
+                      mass_target=args.pod_mass_target,
+                      k_max_ratio=args.pod_k_max_ratio),
+        transport=TransportConfig(repack=args.repack,
+                                  byte_budget=args.byte_budget,
+                                  overlap=fields["overlap"]))
 
 
 def _join_workers(platform: str) -> bool:
@@ -637,6 +754,8 @@ def main(argv=None):
 
         python -m repro_torch.launch.train [--preset topk] [--bucketed]
             [--wire packed] [--platform cpu]
+        torchrun --nproc_per_node 2 -m repro_torch.launch.train \
+            --platform cpu --preset qsparse_local --steps 8
         torchrun --nproc_per_node 2 -m repro_torch.launch.train \
             --platform cpu --preset topk --ratio 0.02
         torchrun --nproc_per_node 4 -m repro_torch.launch.train \
@@ -699,8 +818,22 @@ def main(argv=None):
                     choices=("dense", "topk", "qsparse_local",
                              "pod_budgeted"),
                     help="start from a named SyncConfig.preset; other "
-                         "sync flags given EXPLICITLY override its fields "
-                         "(qsparse_local is not ported)")
+                         "sync flags given EXPLICITLY override its fields")
+    ap.add_argument("--local-steps", type=int, default=1,
+                    help="Qsparse-local-SGD: H uncommunicated local steps "
+                         "(eta_t * g_t accumulated in bucket space beside "
+                         "the memory), then ONE sync through top-k (and "
+                         "--wire-quant): bytes per step fall by H (implies "
+                         "--bucketed; 1: the per-step sync)")
+    ap.add_argument("--wire-quant", type=int, default=None,
+                    help="QSGD stochastic quantization to s levels of the "
+                         "sparse wire's values: one f32 row norm and "
+                         "(1 + ceil(log2(s+1)))-bit codes a value on the "
+                         "packed wire; the memory keeps the quantization "
+                         "error (implies --bucketed)")
+    ap.add_argument("--quant-seed", type=int, default=0,
+                    help="seed of the QSGD rounding noise (the step count "
+                         "is mixed in every step)")
     ap.add_argument("--wire", default="unpacked",
                     choices=("unpacked", "packed"),
                     help="sync wire format (repro_torch.core.encoding)")
@@ -736,7 +869,7 @@ def main(argv=None):
                    if args.pod_refresh_every > 0 else None)
         tc = TrainConfig(optimizer=args.optimizer, eta=args.eta, sync=sync,
                          pod_autotune=not args.no_pod_autotune,
-                         pod_refresh=refresh)
+                         pod_refresh=refresh, quant_seed=args.quant_seed)
         batches = ShardedBatcher(
             token_batches(cfg.vocab_size, args.batch, args.seq, seed=0),
             device)

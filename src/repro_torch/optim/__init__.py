@@ -1,6 +1,7 @@
 """Optimizers of the port (``repro.optim``'s names): the
-GradientTransformation protocol, SGD, momentum, Adam and the schedules.
-QSGD is not ported yet."""
+GradientTransformation protocol, SGD, momentum, Adam, QSGD (the paper's
+quantization baseline, and the quantizer of Qsparse-local-SGD) and the
+schedules."""
 from repro_torch.optim.base import (
     GradientTransformation,
     apply_updates,
@@ -11,6 +12,7 @@ from repro_torch.optim.base import (
 )
 from repro_torch.optim.sgd import sgd, sgd_momentum, add_weight_decay, clip_by_global_norm
 from repro_torch.optim.adam import adam
+from repro_torch.optim.qsgd import QuantNoise, qsgd, qsgd_quantize, quantize_rows
 from repro_torch.optim import schedules
 
 __all__ = [
@@ -25,5 +27,9 @@ __all__ = [
     "add_weight_decay",
     "clip_by_global_norm",
     "adam",
+    "QuantNoise",
+    "qsgd",
+    "qsgd_quantize",
+    "quantize_rows",
     "schedules",
 ]

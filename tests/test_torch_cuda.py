@@ -1108,3 +1108,152 @@ def test_bf16_bucket_memory_step_on_the_card_matches_the_cpu():
     for a, b in zip(out["cpu"], out["cuda"]):
         assert a.dtype == b.dtype
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# Qsparse-local-SGD: the quantizer, the quantized sync and the accumulator
+# ---------------------------------------------------------------------------
+
+
+class _CpuDrawnNoise:
+    """``QuantNoise``'s draws made on the CPU and moved to the device, so
+    that the card and the CPU quantize on the same uniforms."""
+
+    def __init__(self, seed, step):
+        from repro_torch.optim.qsgd import QuantNoise
+
+        self._noise = QuantNoise(seed, step)
+
+    def uniforms(self, bucket, level, index, shape, device):
+        return self._noise.uniforms(bucket, level, index, shape,
+                                    "cpu").to(device)
+
+
+def _quant_rows(kind, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((512, 10)).astype(np.float32)
+    if kind == "dyadic":
+        x = np.round(x * 8) / 8
+    elif kind == "zeros":  # exact zeros, -0.0 and a zero row
+        x[::3, ::2] = 0.0
+        x[1::3, 1::2] = -0.0
+        x[7] = 0.0
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("s", [1, 15, 32767])
+@pytest.mark.parametrize("kind", ["normal", "dyadic", "zeros"])
+def test_quantizer_on_the_card_matches_the_cpu(kind, s):
+    """``quantize_rows`` and ``dequantize_rows`` on the card on uniforms
+    drawn on the CPU: the CPU's norms, codes and values bit for bit (the
+    norm's fixed order and float64 root, the dequantization's two float32
+    products)."""
+    _need_card()
+    from repro_torch.core.encoding import dequantize_rows
+    from repro_torch.optim.qsgd import QuantNoise, quantize_rows
+
+    vals = _quant_rows(kind, seed=s)
+    u = QuantNoise(2, 3).uniforms(0, 1, 0, vals.shape, "cpu")
+    got = quantize_rows(vals.cuda(), s, u.cuda())
+    want = quantize_rows(vals, s, u)
+    got += (dequantize_rows(*got, s),)
+    want += (dequantize_rows(*want, s),)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda"
+        assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("wire", ["packed", "unpacked"])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_quantized_sync_on_the_card_matches_the_cpu(wire, accumulate):
+    """The quantized bucketed sync at one worker on the same CPU-drawn
+    uniforms, directly or through the local-step accumulator at H = 1:
+    the card's update and memory the CPU's bit for bit, one fused launch
+    on the card; the accumulator path the direct path's bit for bit
+    (``accumulate_local``'s product and sum are two rounded ops on the
+    card too)."""
+    _need_card()
+    from repro_torch.core import buckets as bk
+    from repro_torch.core.distributed import (SyncConfig, WireConfig,
+                                              bucketed_sync_gradients)
+
+    rng = np.random.default_rng(4)
+    tree = {"w": torch.from_numpy(rng.standard_normal((128, 256)).astype(
+        np.float32)), "b": torch.from_numpy(rng.standard_normal(64).astype(
+            np.float32))}
+    plan = bk.make_plan(tree, cols=512)
+    mem = [torch.from_numpy(rng.standard_normal(s.shape).astype(np.float32))
+           for s in plan.buckets]
+    cfg = SyncConfig(ratio=0.02, bucketed=True, bucket_cols=512,
+                     wire=WireConfig(wire=wire, quant=15))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        for acc in sorted({False, accumulate}):
+            g = tree_map(lambda t: t.to(dev), tree)
+            kw = dict(quant_noise=_CpuDrawnNoise(5, 6))
+            before = SELECTION_LAUNCHES["threshold"] + \
+                SELECTION_LAUNCHES["loop"]
+            if acc:
+                bufs = bk.accumulate_local(plan, bk.init_local_accum(
+                    plan, device=dev), g, 0.37)
+                upd, new_m, _ = bucketed_sync_gradients(
+                    cfg, plan, [m.to(dev) for m in mem], None, 1.0,
+                    grad_bufs=bufs, **kw)
+            else:
+                upd, new_m, _ = bucketed_sync_gradients(
+                    cfg, plan, [m.to(dev) for m in mem], g, 0.37, **kw)
+            launched = (SELECTION_LAUNCHES["threshold"]
+                        + SELECTION_LAUNCHES["loop"] - before)
+            assert launched == int(dev == "cuda")
+            out[dev, acc] = [t.cpu() for t in tree_leaves(upd) + list(new_m)]
+    for key in out:
+        for a, b in zip(out[key], out["cpu", False]):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_local_steps_launch_only_at_the_sync_step_on_the_card():
+    """The qsparse_local step on the card (H = 2, the smoke config): the
+    local step launches no kernel, the sync step the fused kernel once per
+    sparse bucket; the accumulator after the local step within 1e-5
+    relative L2 of the CPU's (one step's gradients, summed in each
+    device's order), the sync step's loss within 1e-5 of the CPU's."""
+    _need_card()
+    from repro_torch.core import buckets as bk
+
+    model = build_model(get_smoke_config("qwen3-4b").replace(
+        compute_dtype="float32"))
+    sync = SyncConfig.preset("qsparse_local", ratio=0.02, local_steps=2)
+    tc = TrainConfig(eta=0.5, sync=sync)
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b, _ in zip(token_batches(model.cfg.vocab_size, 2, 32,
+                                             seed=0), range(2))]
+    host = model.init(seed=0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params, memory, opt, count = init_train_state(
+            model, tc, device=dev,
+            params=tree_map(lambda t: t.to(dev, copy=True), host))
+        step = make_train_step(model, tc)
+        acc = bk.init_local_accum(step.plan, device=dev)
+        before = dict(SELECTION_LAUNCHES)
+        b0 = {k: v.to(dev) for k, v in batches[0].items()}
+        params, memory, acc, opt, count, _ = step.accum(params, memory, acc,
+                                                        opt, count, b0)
+        local = {n: SELECTION_LAUNCHES[n] - before[n] for n in before}
+        kept = [a.cpu().clone() for a in acc]
+        b1 = {k: v.to(dev) for k, v in batches[1].items()}
+        params, memory, acc, opt, count, met = step(params, memory, acc,
+                                                    opt, count, b1)
+        synced = {n: SELECTION_LAUNCHES[n] - before[n] - local[n]
+                  for n in before}
+        out[dev] = (local, synced, kept, met["loss"])
+        assert count == 2 and all(float(a.abs().max()) == 0 for a in acc)
+    n_sparse = sum(s.kind == "sparse" for s in step.plan.buckets)
+    assert not any(out["cuda"][0].values())
+    assert sum(out["cuda"][1].values()) == n_sparse
+    assert not any(out["cpu"][0].values()) and not any(out["cpu"][1].values())
+    l_cpu, l_gpu = float(out["cpu"][3]), float(out["cuda"][3])
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    # one step's gradients on the two devices: within float32 rounding
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        assert float((a - b).norm() / b.norm().clamp(min=1e-30)) < 1e-5

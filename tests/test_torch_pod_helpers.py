@@ -8,7 +8,6 @@ bytes equal to the accounted ones) and the byte accounting by level
 (static, padded and effective).
 """
 import dataclasses
-import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -49,10 +48,16 @@ COLS = 128
 
 
 def _ref(cfg: SyncConfig) -> RefSyncConfig:
-    """The reference's config with the port's flat field values."""
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        return RefSyncConfig(**dataclasses.asdict(cfg))
+    """The reference's config with the port's field values, its pod, wire
+    and transport groups field for field."""
+    from repro.core import distributed as rd
+
+    groups = {"pod": rd.PodConfig, "wire_cfg": rd.WireConfig,
+              "transport": rd.TransportConfig}
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    for name, cls in groups.items():
+        kw[name] = cls(**dataclasses.asdict(kw[name]))
+    return RefSyncConfig(**kw)
 
 
 def _hier(**kw) -> SyncConfig:

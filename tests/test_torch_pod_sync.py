@@ -40,12 +40,26 @@ calibration (``PodRatioCalibrator``) at (2, 2) and (4, 1); then the
   the reference's traced at overlap=True; every self-check flag True,
   and the repack check's bytes the reference's accounting.
 
+The quantized two-level sync (``WireConfig.quant`` 15; the static pod k,
+and the runtime pod k through the repack boundary; both wires): on the
+reference's uniforms (``_ref_quant_noise``: level 1 folds the data index,
+then the pod; level 2 the pod) against the reference's ``quant_key`` sync
+under the same nested vmap, the update and memory within 1e-6 plus 4e-7
+of the tensor's largest |value| (the level-2 norm sums dequantized values
+in XLA's order or the port's, 2 ulp apart), the bytes by level its
+accounting; on the port's own ``QuantNoise`` the level-2 codes of the two
+ranks of a pod identical, packed == unpacked and the four ranks' updates
+bit for bit, mass conserved within 1e-5; ``local_quant_selfcheck`` on the
+layout, every flag True.
+
 At (2, 2) each cross-worker sum has two terms, so the pod means are the
 reference's bits up to ``u``'s FMA.
 """
 import itertools
 import os
 import warnings
+
+from _ref_quant_noise import pod_noise
 
 import jax
 import jax.numpy as jnp
@@ -90,6 +104,13 @@ BF16_CASES = [(path, mode, wire) for path, mode in (
 # every case also runs at SyncConfig.overlap False and True (the bucket
 # pipeline's depth 1 and 2); None is the key without an overlap
 OVERLAPS = (None, False, True)
+# the quantized two-level sync: the static pod k and the runtime pod k
+# through the repack boundary, both wires, the reference's uniforms or the
+# port's own QuantNoise
+QUANT = 15
+QSEED, QSTEP = 4, 7
+QUANT_CASES = [(mode, wire, noise) for mode in ("static", "dynamic")
+               for wire in ("unpacked", "packed") for noise in ("ref", "own")]
 ARCH = "rwkv6-3b"
 TRAIN = dict(batch=4, seq=32, steps=5, eta=0.3)
 TRAIN_RATIO = 0.02
@@ -146,6 +167,58 @@ def _cfg(path, mode, wire, vd="float32", overlap=None):
 
     return SyncConfig(bucketed=path == "bucketed", wire=wire, **BASE,
                       **MODES[mode], value_dtype=vd, overlap=overlap)
+
+
+def _qcfg(mode, wire, pkg="port"):
+    """The quantized two-level config of ``mode``, the port's or the
+    reference's."""
+    if pkg == "port":
+        from repro_torch.core.distributed import (PodConfig, SyncConfig,
+                                                  TransportConfig,
+                                                  WireConfig)
+    else:
+        from repro.core.distributed import (PodConfig, SyncConfig,
+                                            TransportConfig, WireConfig)
+    pod = (dict(ratio=0.01) if mode == "static" else dict(dynamic=True))
+    return SyncConfig(ratio=0.02, bucket_cols=COLS, strategy="hierarchical",
+                      bucketed=True, pod=PodConfig(axis="pod", **pod),
+                      wire=WireConfig(wire=wire, quant=QUANT),
+                      transport=TransportConfig(repack=mode == "dynamic"))
+
+
+def _quant_runs(layout, rank):
+    """Every QUANT_CASES sync on this rank, with the codes each quantize
+    stage drew (level 1, then level 2, by bucket)."""
+    import repro_torch.core.distributed as dist_mod
+    from repro_torch.core import buckets as bk
+    from repro_torch.optim.qsgd import QuantNoise
+
+    out = {}
+    real = dist_mod._quantize_selected
+    for mode, wire, noise in QUANT_CASES:
+        mem_np, grads_np = _inputs("bucketed", rank)
+        grads = params_from_jax(grads_np)
+        level, codes = {"intra": 0, "cross": 0}, []
+
+        def spy(cfg, vals, uniforms):
+            q = real(cfg, vals, uniforms)
+            codes.append(q[1].clone())
+            return q
+
+        dist_mod._quantize_selected = spy
+        try:
+            upd, mem, nbytes = dist_mod.bucketed_sync_gradients(
+                _qcfg(mode, wire), bk.make_plan(grads, cols=COLS),
+                [torch.from_numpy(m) for m in mem_np], grads, ETA,
+                layout=layout, level_bytes=level,
+                pod_ks=LIVE if mode == "dynamic" else None,
+                quant_noise=(pod_noise(DATA) if noise == "ref"
+                             else QuantNoise)(QSEED, QSTEP))
+        finally:
+            dist_mod._quantize_selected = real
+        out[mode, wire, noise] = (tree_leaves(upd), list(mem), nbytes, level,
+                                  codes)
+    return out
 
 
 def _train_runs(layout):
@@ -306,7 +379,8 @@ def _worker(rank, tmp):
     from repro_torch.core import buckets as bk
     from repro_torch.core.distributed import (bucketed_sync_gradients,
                                               sparse_sync_gradients)
-    from repro_torch.core.selfcheck import (overlap_selfcheck,
+    from repro_torch.core.selfcheck import (local_quant_selfcheck,
+                                            overlap_selfcheck,
                                             repack_selfcheck)
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.mesh import make_layout, n_chips, pod_axis_of
@@ -344,6 +418,8 @@ def _worker(rank, tmp):
         out["selfchecks"] = (overlap_selfcheck(layout),
                              overlap_selfcheck(layout, wire="unpacked"),
                              repack_selfcheck(layout))
+        out["quant"] = _quant_runs(layout, rank)
+        out["local_quant_selfcheck"] = local_quant_selfcheck(layout)
         out["train"] = _train_runs(layout)
         out["calibration"] = _calibrations(rank, out["train"]["budget"])
         get = configs.get_smoke_config  # float32 compute for the parity
@@ -795,3 +871,112 @@ def test_four_rank_main_matches_the_full_batch_reference(runs):
         jax.tree.map(jnp.asarray, params),
         {k: jnp.asarray(v) for k, v in batch.items()})
     np.testing.assert_allclose(h0[0][1], float(metrics["xent"]), rtol=1e-5)
+
+
+_QREF = {}
+
+
+def _quant_reference(mode):
+    """The reference's quantized (2, 2) sync under nested vmap over
+    ("pod", "data") on the packed wire, its quant_key
+    fold_in(PRNGKey(QSEED), QSTEP): (update leaves, memory buffers), each
+    with leading (pod, data) axes."""
+    if mode in _QREF:
+        return _QREF[mode]
+    rcfg = _qcfg(mode, "packed", pkg="ref")
+    mems, grads = zip(*(_inputs("bucketed", r) for r in range(W)))
+
+    def stack(*xs):
+        return jnp.stack([jnp.asarray(x) for x in xs]).reshape(
+            (PODS, DATA) + np.shape(xs[0]))
+
+    plan = rbk.make_plan(jax.tree.map(jnp.asarray, grads[0]), cols=COLS)
+    ks = jnp.asarray(LIVE, jnp.int32) if mode == "dynamic" else None
+    qkey = jax.random.fold_in(jax.random.PRNGKey(QSEED), QSTEP)
+
+    def fn(m, g):
+        return ref_bucketed(rcfg, plan, m, g, jnp.float32(ETA), pod_ks=ks,
+                            quant_key=qkey)[:2]
+
+    upd, mem = jax.jit(jax.vmap(jax.vmap(fn, axis_name="data"),
+                                axis_name="pod"))(
+        tuple(stack(*bs) for bs in zip(*mems)), jax.tree.map(stack, *grads))
+    _QREF[mode] = ([np.asarray(x) for x in jax.tree.leaves(upd)],
+                   [np.asarray(x) for x in mem])
+    return _QREF[mode]
+
+
+def _quant_level_bytes(mode, wire):
+    """The reference's bytes by level of a quantized case: at the live ks
+    through the repack boundary."""
+    _, grads = _inputs("bucketed", 0)
+    plan = rbk.make_plan(jax.tree.map(jnp.asarray, grads), cols=COLS)
+    live = dict(pod_ks=LIVE) if mode == "dynamic" else {}
+    lv = ref_bucket_bytes(_qcfg(mode, wire, pkg="ref"), plan, by_level=True,
+                          **live)
+    kw = dict(n_data=DATA) if mode == "dynamic" else {}
+    return ({"intra": lv["intra"], "cross": lv["cross"]},
+            ref_bucket_bytes(_qcfg(mode, wire, pkg="ref"), plan, **kw))
+
+
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+@pytest.mark.parametrize("wire", ["unpacked", "packed"])
+def test_quantized_two_level_sync_matches_reference(runs, mode, wire):
+    r_upd, r_mem = _quant_reference(mode)
+    level_want, bytes_want = _quant_level_bytes(mode, wire)
+    for rank, r in enumerate(runs):
+        p, d = divmod(rank, DATA)
+        upd, mem, nbytes, level, _ = r["quant"][mode, wire, "ref"]
+        assert nbytes == bytes_want and level == level_want
+        assert len(upd) == len(r_upd) and len(mem) == len(r_mem)
+        for a, b in zip(upd + mem, r_upd + r_mem):
+            b = b[p, d]
+            np.testing.assert_allclose(
+                a.numpy(), b, rtol=0, atol=1e-6 + 4e-7 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+def test_quantized_two_level_sync_with_the_ports_noise(runs, mode):
+    """The port's own noise: both ranks of a pod draw the same level-2
+    codes (the pod summary's, level 2 of each bucket), packed ==
+    unpacked and the four ranks' updates bit for bit, the bytes by level
+    the accounting, mean_w(u) == update + mean_w(m') within 1e-5 in
+    bucket space without the padding tail."""
+    from repro_torch.core import buckets as bk
+
+    cases = [r["quant"] for r in runs]
+    for pod in range(PODS):
+        first = cases[pod * DATA][mode, "packed", "own"][4]
+        assert len(first) == 2  # the sparse bucket's two levels
+        for d in range(1, DATA):
+            codes = cases[pod * DATA + d][mode, "packed", "own"][4]
+            assert torch.equal(codes[1], first[1])
+    for c in cases:
+        p, u = c[mode, "packed", "own"], c[mode, "unpacked", "own"]
+        for a, b in zip(p[0] + p[1], u[0] + u[1]):
+            assert torch.equal(_bits(a), _bits(b))
+        for a, b in zip(p[0], cases[0][mode, "packed", "own"][0]):
+            assert torch.equal(_bits(a), _bits(b))
+        assert (p[3], p[2]) == _quant_level_bytes(mode, "packed")
+    plan = bk.make_plan(params_from_jax(_inputs("bucketed", 0)[1]),
+                        cols=COLS)
+    upd = bk.pack(plan, plan.treedef.unflatten(
+        cases[0][mode, "packed", "own"][0]))
+    eta = np.float32(ETA)
+    for b, spec in enumerate(plan.buckets):
+        us, ms = [], []
+        for rank in range(W):
+            m_np, g_np = _inputs("bucketed", rank)
+            g = bk.pack(plan, params_from_jax(g_np))[b].numpy()
+            us.append(m_np[b] + eta * g)
+            ms.append(cases[rank][mode, "packed", "own"][1][b].numpy())
+        err = np.abs(np.mean(us, 0) - (upd[b].numpy() + np.mean(ms, 0)))
+        assert err.ravel()[:spec.size].max() <= 1e-5
+
+
+def test_local_quant_selfcheck_on_the_four_rank_layout(runs):
+    for r in runs:
+        out = r["local_quant_selfcheck"]
+        assert out["quant_conservation_max_err"] < 1e-5
+        assert out["h1_accum_bitwise"] and out["quant_bit_identical"]
+        assert out["quant_accounting_exact"] and out["amortized_ratio_exact"]

@@ -11,6 +11,7 @@ the selected entries — so values are compared with ``==``-style
 tolerances, not byte views.
 """
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -133,25 +134,33 @@ def test_message_bytes_match_reference():
 
 
 @pytest.mark.parametrize("change,name", [
-    # the ids of the cases kept from before the packed wire was ported
-    # the two-level chain runs since the pod sync was ported, at bf16 wire
-    # values too since the bf16 row top-k kernels were, and at every
-    # overlap since the bucket pipeline was: it still refuses the quantized
-    # wire by name
+    # the ids of the cases kept from before the packed wire was ported.
+    # Every option is ported since the quantized wire and local steps
+    # were: the quantized wire at bf16 wire values is refused by name with
+    # the reference's error, and the other mixes validate as the
+    # reference's do
     pytest.param(dict(strategy="hierarchical", pod_axis="pod",
                       value_dtype="bfloat16", overlap=True, quant=15),
                  "quant", id="change0-hierarchical"),
-    pytest.param(dict(quant=15), "quant", id="change2-quant"),
-    pytest.param(dict(local_steps=4), "local_steps",
-                 id="change3-local_steps"),
-    # the bucket pipeline runs: with it on, local steps are still refused
-    pytest.param(dict(overlap=True, local_steps=4), "local_steps",
+    pytest.param(dict(quant=15), None, id="change2-quant"),
+    pytest.param(dict(local_steps=4), None, id="change3-local_steps"),
+    pytest.param(dict(overlap=True, local_steps=4), None,
                  id="change4-overlap"),
 ])
 def test_unported_options_raise_by_name(change, name):
-    cfg = dataclasses.replace(SyncConfig(bucketed=True), **change)
-    with pytest.raises(NotImplementedError, match=name):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        cfg = dataclasses.replace(SyncConfig(bucketed=True), **change)
+        rcfg = dataclasses.replace(RefSyncConfig(bucketed=True), **change)
+    if name is None:
+        assert cfg.validate() is cfg
+        rcfg.validate()
+        return
+    with pytest.raises(ValueError, match=name) as ours:
         cfg.validate()
+    with pytest.raises(ValueError) as ref:
+        rcfg.validate()
+    assert str(ours.value) == str(ref.value)
 
 
 @pytest.mark.parametrize("change", [dict(strategy="ring"),
@@ -225,22 +234,33 @@ def test_presets_match_reference(name, overrides):
     cfg = SyncConfig.preset(name, **overrides)
     rcfg = RefSyncConfig.preset(name, **overrides)
     for field in dataclasses.fields(cfg):
-        assert getattr(cfg, field.name) == getattr(rcfg, field.name), field
+        got, want = getattr(cfg, field.name), getattr(rcfg, field.name)
+        if dataclasses.is_dataclass(got):  # the pod, wire and transport
+            got, want = dataclasses.astuple(got), dataclasses.astuple(want)
+        assert got == want, field
     cfg.validate()
 
 
 @pytest.mark.parametrize("name,overrides,words", [
-    pytest.param("qsparse_local", {}, "local steps",
+    # every preset is ported since qsparse_local was: it validates as the
+    # reference's; the quantized wire at bf16 wire values on pod_budgeted
+    # is refused by name with the reference's error
+    pytest.param("qsparse_local", {}, None,
                  id="qsparse_local-local steps"),
-    # pod_budgeted is ported, at bf16 wire values and every overlap too;
-    # the quantized wire on it is not
     pytest.param("pod_budgeted", dict(pod_axis="pod", value_dtype="bfloat16",
                                       overlap=True, quant=15),
                  "quant", id="pod_budgeted-hierarchical")])
 def test_unported_presets_raise_by_name(name, overrides, words):
-    RefSyncConfig.preset(name)  # the reference has it
-    with pytest.raises(NotImplementedError, match=words):
+    rcfg = RefSyncConfig.preset(name, **overrides)
+    if words is None:
         SyncConfig.preset(name, **overrides).validate()
+        rcfg.validate()
+    else:
+        with pytest.raises(ValueError, match=words) as ours:
+            SyncConfig.preset(name, **overrides).validate()
+        with pytest.raises(ValueError) as ref:
+            rcfg.validate()
+        assert str(ours.value) == str(ref.value)
     if name == "pod_budgeted":  # without quant it validates, overlap on
         overrides = {k: v for k, v in overrides.items() if k != "quant"}
         SyncConfig.preset(name, **overrides).validate()

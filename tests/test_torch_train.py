@@ -410,12 +410,16 @@ def test_cuda_without_a_gpu_raises():
 
 
 @pytest.mark.parametrize("tc,err", [
-    (TrainConfig(sync=SyncConfig(overlap=True, local_steps=4)),
-     NotImplementedError),  # local steps (the bucket pipeline runs)
-    (TrainConfig(sync=SyncConfig(bucketed=True, wire="packed", quant=4)),
-     NotImplementedError),  # the quant wire (QSGD levels)
-    (TrainConfig(optimizer="sgd", sync=SyncConfig(bucketed=True)),
-     ValueError),
+    # the ids of the cases from before local steps and the quantized wire
+    # were ported: on the per-leaf path they are refused, as the reference
+    # refuses them
+    pytest.param(TrainConfig(sync=SyncConfig(overlap=True, local_steps=4)),
+                 ValueError, id="tc0-NotImplementedError"),
+    pytest.param(TrainConfig(sync=SyncConfig(wire="packed", quant=4)),
+                 ValueError, id="tc1-NotImplementedError"),
+    pytest.param(TrainConfig(optimizer="sgd",
+                             sync=SyncConfig(bucketed=True)),
+                 ValueError, id="tc2-ValueError"),
 ])
 def test_unported_or_unknown_settings_raise(tc, err):
     model = build_model(get_smoke_config(ARCH))
@@ -583,6 +587,10 @@ def test_cli_arch_reaches_every_ported_arch(arch):
     (["--preset", "pod_budgeted", "--overlap", "off"], "pod_budgeted",
      dict(overlap=False)),
     (["--preset", "topk", "--overlap", "auto"], "topk", {}),
+    (["--preset", "qsparse_local"], "qsparse_local", {}),
+    (["--preset", "qsparse_local", "--local-steps", "2", "--wire-quant",
+      "3", "--wire", "unpacked"], "qsparse_local",
+     dict(local_steps=2, quant=3)),
 ])
 def test_cli_preset_matches_reference(argv, name, overrides):
     """Explicit flags override the preset's fields, as the reference's
@@ -597,8 +605,19 @@ def test_cli_preset_matches_reference(argv, name, overrides):
 
 
 def test_cli_unported_preset_raises_by_name():
-    with pytest.raises(NotImplementedError, match="qsparse_local"):
-        train_mod.main(["--platform", "cpu", "--preset", "qsparse_local"])
+    """Every preset of the reference's is ported (qsparse_local with its
+    flags since local steps and the quantized wire were): the CLI builds
+    the reference's config for it, and an unknown preset name raises by
+    name."""
+    got = _cli_sync(["--preset", "qsparse_local", "--ratio", "0.02",
+                     "--wire-quant", "7", "--local-steps", "2"])
+    want = RefSyncConfig.preset("qsparse_local", ratio=0.02, quant=7,
+                                local_steps=2)
+    for field in ("strategy", "ratio", "bucketed", "wire", "local_steps",
+                  "quant"):
+        assert getattr(got, field) == getattr(want, field), field
+    with pytest.raises(ValueError, match="bogus"):
+        SyncConfig.preset("bogus")
 
 
 def test_main_trains_the_topk_preset_on_the_cpu():

@@ -142,10 +142,15 @@ def test_accounting_equals_the_reference():
 
 
 def test_the_quantized_tier_raises_by_name():
-    with pytest.raises(NotImplementedError, match="quantized"):
-        enc.WireSpec(4, 64, 8, quant=15)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        enc.message_nbytes(4, 64, 8, wire="packed", quant=15)
+    """The quantized tier is ported: it refuses what the reference's
+    refuses, by name (bf16 wire values, a dense message), and accounts
+    the rest as the reference's."""
+    with pytest.raises(ValueError, match="quantized"):
+        enc.WireSpec(4, 64, 8, "bfloat16", quant=15)
+    with pytest.raises(ValueError, match="quantized"):
+        enc.WireSpec(4, 64, 8, kind="dense", quant=15)
+    assert enc.message_nbytes(4, 64, 8, wire="packed", quant=15) == \
+        renc.message_nbytes(4, 64, 8, wire="packed", quant=15)
 
 
 def test_bad_shapes_raise():

@@ -20,10 +20,22 @@ on and off, and saves what it got. The tests compare:
   bit overlap None's (update, memory, bytes); the overlap=True sync on
   the packed wire against the reference's traced at overlap=True under
   the same vmap; the CLI at ``--overlap on`` and ``off`` with the losses
-  and params of ``--overlap auto``.
+  and params of ``--overlap auto``;
+* the quantized flat sync (``WireConfig.quant`` 15, bucketed, both
+  wires): on the reference's uniforms (``_ref_quant_noise.RefNoise``)
+  against the reference's ``quant_key`` sync under the same vmap, bit for
+  bit on dyadic values (j/8, eta 1/2: u, the sums of squares and the
+  two-term mean are exact) and within 1e-6 on random ones; on the port's
+  own ``QuantNoise`` mean_w(u) == update + mean_w(m') within 1e-5,
+  packed == unpacked and the two ranks' updates bit for bit, the bytes
+  the quant-aware accounting; a 2-rank ``main(["--preset",
+  "qsparse_local", ...])`` (8 steps: two syncs) with the same losses and
+  params on both ranks and its step-0 loss the full-batch reference's.
 """
 import itertools
 import os
+
+from _ref_quant_noise import RefNoise
 
 import jax
 import jax.numpy as jnp
@@ -55,6 +67,14 @@ CASES = [(path, wire, vd) for path in ("bucketed", "per-leaf")
 OVERLAPS = (None, False, True)
 MAIN_ARGS = ["--preset", "topk", "--platform", "cpu", "--steps", "2",
              "--batch", "4", "--seq", "32"]
+# the quantized flat sync: both wires, dyadic or random values, the
+# reference's uniforms or the port's own QuantNoise
+QUANT = 15
+QSEED, QSTEP = 4, 7
+QUANT_CASES = [(wire, data, noise) for wire in ("unpacked", "packed")
+               for data in ("dyadic", "random") for noise in ("ref", "own")]
+QSPARSE_ARGS = ["--preset", "qsparse_local", "--platform", "cpu", "--steps",
+                "8", "--batch", "4", "--seq", "32", "--ratio", "0.02"]
 
 
 def _tree_np(seed):
@@ -80,6 +100,30 @@ def _inputs(path, rank):
     rng = np.random.default_rng(30 + rank)
     return [rng.standard_normal(s.shape).astype(np.float32)
             for s in plan.buckets], grads
+
+
+def _quant_inputs(rank, data):
+    """This rank's bucketed (memory, grads) for the quantized sync, numpy;
+    dyadic: each value rounded to j/8, |j| <= 64."""
+    mem, grads = _inputs("bucketed", rank)
+    if data == "dyadic":
+        def dy(x):
+            return (np.clip(np.round(x * 8), -64, 64) / 8).astype(np.float32)
+
+        mem = [dy(m) for m in mem]
+        grads = jax.tree.map(dy, grads)
+    return mem, grads
+
+
+def _quant_eta(data):
+    return 0.5 if data == "dyadic" else ETA
+
+
+def _qcfg(wire):
+    from repro_torch.core.distributed import SyncConfig, WireConfig
+
+    return SyncConfig(ratio=0.02, bucketed=True, bucket_cols=COLS,
+                      wire=WireConfig(wire=wire, quant=QUANT))
 
 
 def _cfg(path, wire, vd, overlap=None):
@@ -125,6 +169,18 @@ def _worker(rank, tmp):
             key = (path, wire, vd) + ((overlap,) if overlap is not None
                                       else ())
             out[key] = (tree_leaves(upd), mem, nbytes)
+        from repro_torch.optim.qsgd import QuantNoise
+
+        for wire, data, noise in QUANT_CASES:
+            mem_np, grads_np = _quant_inputs(rank, data)
+            grads = params_from_jax(grads_np)
+            upd, mem, nbytes = bucketed_sync_gradients(
+                _qcfg(wire), bk.make_plan(grads, cols=COLS),
+                [torch.from_numpy(m) for m in mem_np], grads,
+                _quant_eta(data), quant_noise=(RefNoise if noise == "ref"
+                                               else QuantNoise)(QSEED, QSTEP))
+            out["quant", wire, data, noise] = (tree_leaves(upd), list(mem),
+                                               nbytes)
         get = configs.get_smoke_config  # float32 compute for the parity
         configs.get_smoke_config = lambda arch: get(arch).replace(
             compute_dtype="float32")
@@ -135,6 +191,11 @@ def _worker(rank, tmp):
                     MAIN_ARGS + ["--overlap", flag])
             out["main" if flag == "auto" else ("main", flag)] = (
                 tree_leaves(params), history, count, text.getvalue())
+        text = io.StringIO()
+        with redirect_stdout(text):
+            params, memory, _, count, history = train_mod.main(QSPARSE_ARGS)
+        out["qsparse main"] = (tree_leaves(params), list(memory), history,
+                               count, text.getvalue())
     finally:
         dist.destroy_process_group()
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
@@ -274,4 +335,118 @@ def test_two_rank_main_matches_the_full_batch_reference(runs):
         compute_dtype="float32"))
     _, metrics = rmodel.loss(jax.tree.map(jnp.asarray, params),
                              {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_allclose(h0[0][1], float(metrics["xent"]), rtol=1e-5)
+
+
+_QREF = {}
+
+
+def _quant_reference(wire, data):
+    """The reference's quantized flat sync at W = 2 under vmap over the
+    worker axis, its quant_key fold_in(PRNGKey(QSEED), QSTEP): (update
+    leaves per worker, memory buffers per worker, bytes)."""
+    from repro.core.distributed import WireConfig as RefWireConfig
+
+    if (wire, data) in _QREF:
+        return _QREF[wire, data]
+    rcfg = RefSyncConfig(ratio=0.02, bucketed=True, bucket_cols=COLS,
+                         wire=RefWireConfig(wire=wire, quant=QUANT))
+    mems, grads = zip(*(_quant_inputs(r, data) for r in range(W)))
+    stack = lambda *xs: jnp.stack([jnp.asarray(x) for x in xs])  # noqa
+    plan = rbk.make_plan(jax.tree.map(jnp.asarray, grads[0]), cols=COLS)
+    qkey = jax.random.fold_in(jax.random.PRNGKey(QSEED), QSTEP)
+    eta = jnp.float32(_quant_eta(data))
+
+    def fn(m, g):
+        return ref_bucketed(rcfg, plan, m, g, eta, quant_key=qkey)[:2]
+
+    upd, mem = jax.jit(jax.vmap(fn, axis_name="data"))(
+        tuple(stack(*bs) for bs in zip(*mems)), jax.tree.map(stack, *grads))
+    _QREF[wire, data] = ([np.asarray(x) for x in jax.tree.leaves(upd)],
+                         [np.asarray(x) for x in mem],
+                         ref_bucket_bytes(rcfg, plan))
+    return _QREF[wire, data]
+
+
+@pytest.mark.parametrize("wire", ["unpacked", "packed"])
+@pytest.mark.parametrize("data", ["dyadic", "random"])
+def test_quantized_sync_matches_reference_at_two_workers(runs, wire, data):
+    """On the reference's uniforms: dyadic values bit for bit (update and
+    memory), random ones within 1e-6; the bytes equal."""
+    r_upd, r_mem, r_nbytes = _quant_reference(wire, data)
+    for rank in range(W):
+        upd, mem, nbytes = runs[rank]["quant", wire, data, "ref"]
+        assert nbytes == r_nbytes
+        assert len(upd) == len(r_upd) and len(mem) == len(r_mem)
+        for a, b in zip(upd + mem, r_upd + r_mem):
+            a, b = a.numpy(), b[rank]
+            if data == "dyadic":
+                np.testing.assert_array_equal(a.view(np.uint32),
+                                              b.view(np.uint32))
+            else:
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("data", ["dyadic", "random"])
+def test_quantized_sync_with_the_ports_noise_at_two_workers(runs, data):
+    """With the port's own noise: packed == unpacked and the ranks'
+    updates bit for bit, the bytes the quant-aware accounting, and mass
+    conserved: mean_w(u) == update + mean_w(m') within 1e-5 (the memory
+    keeps each worker's quantization error), in bucket space without the
+    padding tail."""
+    from repro_torch.core import buckets as bk
+    from repro_torch.core.distributed import bucketed_message_bytes
+
+    for rank in range(W):
+        p = runs[rank]["quant", "packed", data, "own"]
+        u = runs[rank]["quant", "unpacked", data, "own"]
+        for a, b in zip(p[0] + p[1], u[0] + u[1]):
+            assert torch.equal(_bits(a), _bits(b))
+    for a, b in zip(runs[0]["quant", "packed", data, "own"][0],
+                    runs[1]["quant", "packed", data, "own"][0]):
+        assert torch.equal(_bits(a), _bits(b))
+    grads0 = params_from_jax(_quant_inputs(0, data)[1])
+    plan = bk.make_plan(grads0, cols=COLS)
+    upd, _, nbytes = runs[0]["quant", "packed", data, "own"]
+    assert nbytes == bucketed_message_bytes(_qcfg("packed"), plan)
+    upd_bufs = bk.pack(plan, plan.treedef.unflatten(upd))
+    eta = np.float32(_quant_eta(data))
+    for b in range(len(plan.buckets)):
+        us, ms = [], []
+        for rank in range(W):
+            m_np, g_np = _quant_inputs(rank, data)
+            g = bk.pack(plan, params_from_jax(g_np))[b].numpy()
+            us.append(m_np[b] + eta * g)
+            ms.append(runs[rank]["quant", "packed", data, "own"][1][b]
+                      .numpy())
+        size = plan.buckets[b].size  # without the padding tail
+        err = np.abs(np.mean(us, 0) - (upd_bufs[b].numpy()
+                                       + np.mean(ms, 0))).ravel()[:size]
+        assert err.max() <= 1e-5, err.max()
+
+
+def test_two_rank_main_runs_the_qsparse_local_preset(runs):
+    """``main`` on the qsparse_local preset at two ranks: 8 steps at H = 4
+    (two syncs of the quantized packed wire), the same losses, params and
+    params on both ranks, finite losses, only rank 0 printing; its step-0
+    loss the reference's full-batch loss within rtol 1e-5."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import token_batches
+    from repro_torch.models import build_model
+
+    (p0, m0, h0, c0, text0), (p1, m1, h1, c1, text1) = (
+        runs[r]["qsparse main"] for r in range(W))
+    assert c0 == c1 == 8 and h0 == h1
+    assert all(np.isfinite(x) for _, x in h0)
+    assert "step     0" in text0 and text1 == ""
+    for a, b in zip(p0, p1):
+        assert torch.equal(_bits(a), _bits(b))
+    cfg = get_smoke_config("qwen3-4b").replace(compute_dtype="float32")
+    params = params_to_jax(build_model(cfg).init(seed=0, device="cpu"))
+    batch = next(token_batches(cfg.vocab_size, 4, 32, seed=0))
+    rmodel = ref_build_model(ref_get_smoke_config("qwen3-4b").replace(
+        compute_dtype="float32"))
+    _, metrics = jax.jit(rmodel.loss)(
+        jax.tree.map(jnp.asarray, params),
+        {k: jnp.asarray(v) for k, v in batch.items()})
     np.testing.assert_allclose(h0[0][1], float(metrics["xent"]), rtol=1e-5)
