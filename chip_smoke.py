@@ -233,6 +233,28 @@ Phases, each of which fails the run with a non-zero exit:
    level-2 codes identical within each pod, each level's realized bytes
    the accounting, mass conserved within 1e-5), then
    ``local_quant_selfcheck`` on the (2, 2) layout: every flag True.
+18. The serving side (last): ``decode_loop`` of qwen3-4b (4 layers),
+   rwkv6-3b (8) and recurrentgemma-9b (3) at full width, batch 8, a bf16
+   cache of 4096 positions, a 64-token prompt teacher-forced and 64
+   tokens generated: ms a step, then a profile of a few steps (device
+   busy) and of the params' per-step cast to bf16 alone (its share).
+   Then qwen3-4b's bucketed trainer (k = 10, W = 1) with ``emit_deltas``
+   for 4 steps, every launch count zeroed before and read after the run:
+   each step's delta (its bytes ``DeltaSpec.nbytes``, against the dense
+   broadcast) applied to a replica and published to a ``FanoutHub`` with
+   a float32 and a bf16 replica synced every step; a late joiner at log
+   bound 2 (a snapshot resync); a wire checkpoint at step 4 against the
+   boot params (memory cap 0.05: k = 51), restored. The float32, late
+   and delta replicas and the restored params must be the trainer's bit
+   for bit, the restored memory exact on its support, the bf16 replica
+   under the summed transcode errors, and the launches one fused
+   threshold and one loop top-k a step and one threshold top-k (the
+   cap). The two top-k launches, the delta re-select on the last
+   update and the memory cap on the memory, are held bitwise against the
+   plain version and timed beside the library call and the bound. Last,
+   each family's smoke config decodes in float32 on the card and on the
+   CPU, every KV ring wrapping: logits and caches within 1e-4 of the
+   largest, the greedy tokens equal past the tolerance.
 
 Phase 3 runs the kernels at every architecture's shapes: the fused
 kernel at each bucket (qwen3-4b's, rwkv6-3b's, the two MoE configs',
@@ -249,8 +271,8 @@ regression runs' and the pod sync's (by rank) on a
 ``{"kernels": [...]}`` line (the float32 kernels at granite-moe-3b-a800m's
 shapes and launches, the bf16 forms at the pod sync's shapes with the
 launches of the bf16 pod run, its topk_scatter probe and the bf16 bucket
-memory's steps: each kernel's count from one run, named by
-``launches_from``), then the card's name and power limit, then the
+memory's steps, and the serving run's two top-k launches at their shapes:
+each kernel's count from one run, named by ``launches_from``), then the card's name and power limit, then the
 result line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -419,6 +441,26 @@ TOPK_BYTES_AT_RATIO = 64_751_648
 # the pod phase's quantized run: rwkv6-3b's two-level chain at
 # POD_QUANT_H local steps and 15 levels, POD_QUANT_STEPS steps
 POD_QUANT_H, POD_QUANT_S, POD_QUANT_STEPS = 2, 15, 4
+# the serving side (phase 18): each family's decode at full width (qwen3-4b
+# 4 layers, rwkv6-3b 8, recurrentgemma-9b 3) at batch SERVE_BATCH against a
+# bf16 cache of SERVE_MAX_LEN positions, a SERVE_PROMPT-token prompt
+# teacher-forced, SERVE_GEN tokens generated; SERVE_PROFILE profiled steps.
+# Then qwen3-4b's bucketed trainer (k = 10, W = 1: the delta's k' = 10)
+# emitting its deltas for SERVE_STEPS steps to a replica and a fan-out hub
+# (a float32 and a bf16 replica, a late joiner at log bound SERVE_LOG),
+# and a wire checkpoint at its last step (memory cap 0.05: k = 51). Its
+# bytes a step (the reference's accounting, tests/test_torch_delta.py)
+SERVE_DECODE = {ARCH: N_LAYERS, RWKV_ARCH: RWKV_LAYERS,
+                GRIFFIN_ARCH: GRIFFIN_LAYERS}
+SERVE_BATCH, SERVE_MAX_LEN, SERVE_PROMPT, SERVE_GEN = 8, 4096, 64, 64
+SERVE_PROFILE, SERVE_STEPS, SERVE_LOG = 4, 4, 2
+SERVE_DELTA_BYTES, SERVE_MEMORY_RATIO = 64_751_680, 0.05
+# the serve phase's small input: each family's smoke config in float32 on
+# the card and the CPU, each KV ring wrapping: arch -> (overrides, decode
+# steps, max_len)
+SERVE_SMALL = {ARCH: (dict(sliding_window=8), 12, 16),
+               MOE_ARCH: ({}, 8, 16), RWKV_ARCH: ({}, 10, 16),
+               GRIFFIN_ARCH: (dict(n_layers=3), 70, 80)}
 # the per-leaf rows narrower than this are timed on their own
 NARROW_C = 1024
 KERNEL_SOURCES = ("fused_memsgd", "topk_select")
@@ -3739,6 +3781,352 @@ def phase_pod(dev) -> dict:
     return launches
 
 
+def device_profile(fn, n: int) -> tuple:
+    """(wall ms, device-busy ms) per call of ``fn`` over ``n`` calls under
+    torch.profiler (kernel time, one stream), and its top kernels: (name,
+    ms a call, launches a call), the launches showing whether the trace
+    kept every kernel record."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return wall, busy, [(e.key[:80], e.self_device_time_total / 1e3 / n,
+                         e.count / n) for e in top]
+
+
+def serve_decode(dev, arch: str, depth: int) -> dict:
+    """``decode_loop`` of ``arch`` at full width (depth cut): the prompt
+    teacher-forced, then greedy generation; its ms a step (host clock,
+    synchronized), then SERVE_PROFILE profiled steps (device busy) and the
+    per-step cast of the float32 params to bf16 (``Model._cast``) timed
+    alone with CUDA events: its share of a step's device time (a trace
+    has been seen to drop kernel records, which would understate it).
+    Fails unless the tokens lie in the vocabulary and the logits are
+    finite."""
+    from repro_torch.launch.serve import decode_loop, make_serve_step
+
+    model = full_model(arch, depth)
+    cfg = model.cfg
+    params = model.init(seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    B = SERVE_BATCH
+    prompts = torch.randint(0, cfg.vocab_size, (B, SERVE_PROMPT),
+                            generator=gen, device=dev, dtype=torch.int32)
+    decode_loop(model, params, prompts[:, :2], 2, SERVE_MAX_LEN)  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = decode_loop(model, params, prompts, SERVE_GEN, SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    n = SERVE_PROMPT - 1 + SERVE_GEN
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if (tuple(toks.shape) != (B, SERVE_GEN) or toks.dtype != torch.int32
+            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size):
+        fail(f"{arch} decode: tokens {tuple(toks.shape)} {toks.dtype} "
+             f"outside [0, {cfg.vocab_size})")
+    step = make_serve_step(model, B)
+    state = {"cache": model.init_cache(B, SERVE_MAX_LEN, device=dev),
+             "tok": prompts[:, 0]}
+
+    def one():
+        state["tok"], state["cache"] = step(params, state["cache"],
+                                            state["tok"])
+
+    one()
+    wall, busy, top = device_profile(one, SERVE_PROFILE)
+    cast = cuda_ms(lambda: model._cast(params), SERVE_PROFILE)
+    leaves = len(tree_leaves_of(params))
+    logits, _ = model.decode_step(params, state["cache"], state["tok"])
+    if not bool(torch.isfinite(logits.float()).all()):
+        fail(f"{arch} decode: non-finite logits")
+    cache_gib = sum(x.numel() * x.element_size()
+                    for x in tree_leaves_of(state["cache"])) / 2**30
+    print(f"serve decode: {arch} {depth} layers at full width, "
+          f"{model.n_params()} params, batch {B}, bf16 cache of "
+          f"{SERVE_MAX_LEN} positions ({cache_gib:.3f} GiB), prompt "
+          f"{SERVE_PROMPT} teacher-forced + {SERVE_GEN} generated: "
+          f"{ms:.3f} ms/step (host clock, {n} steps); profiled "
+          f"{SERVE_PROFILE} steps: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall:.1f}%); the params' cast "
+          f"({leaves} leaves, CUDA events) {cast:.3f} ms "
+          f"({100 * cast / busy:.1f}% of the busy time); peak "
+          f"{peak:.2f} GiB; first tokens {toks[0, :6].tolist()}")
+    for key, t, count in top:
+        print(f"    {t:8.3f} ms/step x{count:g} {key}")
+    return {"ms_per_step": ms, "wall": wall, "busy": busy, "cast": cast}
+
+
+def tree_leaves_of(tree) -> list:
+    from repro_torch.utils.tree import tree_leaves
+
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def transcode_error(dspec, msgs) -> float:
+    """One step's ``||u - bf16(u)||_inf``: the largest change the bf16
+    transcode makes to the step's decoded update (the hub's
+    ``drift_bound`` term for one step)."""
+    from repro_torch.core import encoding as enc
+    from repro_torch.launch import delta_stream as ds
+
+    half = dspec.with_value_dtype("bfloat16")
+    worst = 0.0
+    for w, hw, m, t in zip(dspec.wires, half.wires, msgs,
+                           ds.transcode_delta(dspec, msgs)):
+        a = enc.decode(w, m)[0].float()
+        b = enc.decode(hw, t)[0].float()
+        worst = max(worst, float((a - b).abs().max()))
+    return worst
+
+
+def bitwise_trees(a, b) -> bool:
+    xs, ys = tree_leaves_of(a), tree_leaves_of(b)
+    return len(xs) == len(ys) and all(same_bits(x, y)
+                                      for x, y in zip(xs, ys))
+
+
+def serve_small(dev) -> None:
+    """Each family's smoke config in float32, decoded on the card and on
+    the CPU from the same params, every KV ring wrapping (SERVE_SMALL):
+    every step's logits and the final caches within rtol 1e-4, atol 1e-4
+    of the largest; the greedy tokens equal wherever the CPU's top-2
+    margin exceeds twice that."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import greedy_tokens
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_map
+
+    for arch, (over, S, max_len) in SERVE_SMALL.items():
+        cfg = get_smoke_config(arch).replace(compute_dtype="float32", **over)
+        model = build_model(cfg)
+        host = model.init(seed=0, device="cpu")
+        gen = torch.Generator().manual_seed(3)
+        toks = torch.randint(0, cfg.vocab_size, (2, S), generator=gen,
+                             dtype=torch.int32)
+        out = {}
+        for d in (torch.device("cpu"), dev):
+            params = tree_map(lambda t: t.to(d, copy=True), host)
+            cache = model.init_cache(2, max_len, torch.float32, device=d)
+            logits = []
+            for t in range(S):
+                lg, cache = model.decode_step(params, cache, toks[:, t].to(d))
+                logits.append(lg.cpu())
+            out[d.type] = [torch.stack(logits, 1)] + [
+                x.cpu() for x in tree_leaves_of(cache)]
+        worst = max(float((g - w).abs().max() / w.abs().max())
+                    for g, w in zip(out["cuda"], out["cpu"]))
+        ok = all(torch.allclose(g, w, rtol=1e-4,
+                                atol=1e-4 * float(w.abs().max()))
+                 for g, w in zip(out["cuda"], out["cpu"]))
+        want = out["cpu"][0][..., :cfg.vocab_size]
+        top2 = torch.topk(want, 2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        sure = margin > 2e-4 * float(want.abs().max())
+        same = torch.equal(greedy_tokens(out["cuda"][0], cfg.vocab_size)[sure],
+                           greedy_tokens(out["cpu"][0], cfg.vocab_size)[sure])
+        print(f"serve small input, {arch} ({S} tokens, max_len {max_len}, "
+              f"{over}): logits and caches card vs cpu within {worst:.2e} of the "
+              f"largest; greedy tokens {'equal' if same else 'DIFFER'} on "
+              f"{int(sure.sum())} of {sure.numel()} (smallest margin "
+              f"{float(margin.min()):.3g})")
+        if not (ok and same):
+            fail(f"the card's {arch} decode disagrees with the CPU's on the "
+                 "small input")
+
+
+def phase_serve(dev) -> tuple:
+    """The serving side (phase 18): each family's decode at full width;
+    qwen3-4b's bucketed trainer emitting its deltas to a replica and a
+    fan-out hub; a wire checkpoint; the two top-k launches of the path
+    held bitwise and timed; the small input. Returns (the run's launches,
+    the kernels line's two entries)."""
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import buckets as bk
+    from repro_torch.core.distributed import SyncConfig
+    from repro_torch.data import DeviceBatcher, token_batches
+    from repro_torch.launch import delta_stream as ds
+    from repro_torch.kernels.ref import densify_rows_ref, row_topk_ref
+    from repro_torch.launch.fanout import FanoutHub
+    from repro_torch.launch.serve import replica_copy
+    from repro_torch.launch.train import (TrainConfig, init_train_state,
+                                          make_train_step)
+
+    t_phase = time.perf_counter()
+    decode = {arch: serve_decode(dev, arch, depth)
+              for arch, depth in SERVE_DECODE.items()}
+    torch.cuda.empty_cache()
+
+    model = full_model(ARCH, N_LAYERS)
+    tc = TrainConfig(optimizer="memsgd", eta=ETA, emit_deltas=True,
+                     sync=SyncConfig(ratio=RATIO, bucketed=True))
+    params, memory, opt, count = init_train_state(model, tc, device=dev,
+                                                  seed=0)
+    step = make_train_step(model, tc)
+    dspec, plan = step.delta_spec, step.plan
+    k_sel = max(w.k for w in dspec.wires if w.kind == "sparse")
+    gib = dspec.dense_nbytes / 2**30
+    print(f"serve stream: {ARCH} {N_LAYERS} layers bucketed (k = "
+          f"{tc.sync.k_for(tc.sync.bucket_cols)}, W = 1: k' = {k_sel}), "
+          f"delta {dspec.nbytes} B a step against a dense broadcast of "
+          f"{dspec.dense_nbytes} B (x{dspec.dense_nbytes / dspec.nbytes:.2f})"
+          f"; peak reckoned: the trainer's 26.6-31.2 GiB + the hub's packed "
+          f"base, shadow and 2 replicas + the delta replica, 5 x {gib:.2f} "
+          f"GiB = {31.2 + 5 * gib:.1f} GiB at a step, the late joiner and "
+          f"the checkpoint after the steps")
+    if dspec.nbytes != SERVE_DELTA_BYTES:
+        fail(f"delta {dspec.nbytes} B a step, expected {SERVE_DELTA_BYTES}")
+    replica = replica_copy(params)
+    hub = FanoutHub(dspec, params, log_bound=SERVE_LOG)
+    steady, edge = hub.join(), hub.join("bfloat16")
+    batches = iter(DeviceBatcher(
+        token_batches(model.cfg.vocab_size, BATCH, SEQ, seed=0), dev))
+    bound, losses, times = 0.0, [], collections.defaultdict(list)
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[label].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    for i in range(SERVE_STEPS):
+        params, memory, opt, count, m, delta = timed(
+            "train step + delta encode",
+            lambda: step(params, memory, opt, count, next(batches)))
+        losses.append(m["loss"])
+        if sum(d.numel() * 4 for d in delta) != dspec.nbytes:
+            fail(f"step {i}: the delta's buffers are not {dspec.nbytes} B")
+        timed("apply_delta", lambda: ds.apply_delta(replica, dspec, delta))
+        timed("hub publish", lambda: hub.publish(i, delta))
+        timed("hub sync float32", lambda: hub.sync(steady))
+        timed("hub sync bf16", lambda: hub.sync(edge))
+        bound += transcode_error(dspec, delta)
+    late = hub.join()
+    timed("late join + sync", lambda: hub.sync(late))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp)
+        timed("save_wire", lambda: ck.save_wire(
+            SERVE_STEPS, params, memory, plan, base_params=hub.base,
+            memory_ratio=SERVE_MEMORY_RATIO))
+        restored, rmem, meta = timed("restore_wire", lambda: ck.restore_wire(
+            plan=plan, base_params=hub.base))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    expect = {fused_branch(PATH_K): SERVE_STEPS,
+              "row_topk_loop": SERVE_STEPS,
+              "row_topk_threshold": 1}
+    want = {name: expect.get(name, 0) for name in counts}
+    drift = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(tree_leaves_of(params),
+                                tree_leaves_of(edge.params)))
+    st = hub.stats()
+    w = meta["wire"]
+    # the memory's records: the sparse bucket's capped at k_cap (lossy,
+    # held below against the plain top-k), every other one exact
+    b = next(i for i, s_ in enumerate(plan.buckets) if s_.kind == "sparse")
+    k_cap = max(1, round(SERVE_MEMORY_RATIO * plan.buckets[b].cols))
+    mem_recs = {r["index"]: r for r in w["records"]
+                if r["section"] == "memory"}
+    lossy = sorted(i for i, r in mem_recs.items() if not r["exact"])
+    mem_kept = [int((r != 0).sum(1).max()) for r in rmem]
+    mem_exact = len(rmem) == len(memory) == len(mem_recs) and all(
+        same_bits(rmem[i], memory[i]) for i in mem_recs if i not in lossy)
+    flags = {"replica": bitwise_trees(replica, params),
+             "steady": bitwise_trees(steady.params, params),
+             "late": bitwise_trees(late.params, params),
+             "late resynced": late.resyncs == 1,
+             "bf16 under bound": 0 < drift <= bound * 1.01 + 1e-6,
+             "checkpoint params": bitwise_trees(restored, params),
+             "checkpoint memory exact records": mem_exact,
+             "checkpoint memory capped": (lossy == [b]
+                                          and mem_recs[b]["k"] == k_cap
+                                          and mem_kept[b] == k_cap),
+             "launches": counts == want}
+    print(f"serve stream run: losses {losses}; launches {counts}; peak "
+          f"{peak:.2f} GiB; " + "; ".join(
+              f"{k} {statistics.median(v):.2f} ms (median of {len(v)})"
+              for k, v in times.items()))
+    print(f"serve stream: bf16 replica drift {drift:.3e} against the bound "
+          f"{bound:.3e} (the {SERVE_STEPS} steps' transcode errors; the "
+          f"hub's drift_bound over its log {hub.drift_bound():.3e}); the "
+          f"late joiner resynced x{late.resyncs} from a snapshot")
+    print(f"serve hub stats: {json.dumps(st)}")
+    print(f"serve wire checkpoint at step {SERVE_STEPS}: {w['nbytes']} B "
+          f"against a dense dump of {w['dense_nbytes']} B "
+          f"(x{w['ratio_vs_dense']:.2f}); records " + ", ".join(
+              f"{r['section']}/{r['index']} {r['kind']} k={r['k']} "
+              f"{r['nbytes']} B exact={r['exact']} dropped "
+              f"{r['dropped_frac']:.4f}" for r in w["records"])
+          + f"; memory rows keep <= {mem_kept} entries")
+    print(f"serve flags: {flags}")
+    if not all(math.isfinite(x) for x in losses) or not (
+            losses[-1] < losses[0]):
+        fail(f"serve stream: losses {losses}")
+    if not all(flags.values()):
+        fail(f"serve stream: {flags}; launches {counts}, expected {want}")
+
+    # the path's two top-k launches, at their shapes and on their data
+    upd = ds._decode_buf(dspec.wires[b], delta[b])
+    mem_b, rmem_b = memory[b], rmem[b]
+    del (replica, hub, steady, edge, late, restored, rmem, params, opt,
+         delta, batches, step)
+    memory = None
+    torch.cuda.empty_cache()
+    held = {"delta re-select": (held_topk(upd, k_sel, "serve delta "
+                                          "re-select on an update"),
+                                "row_topk_loop"),
+            "memory cap": (held_topk(mem_b, k_cap, "serve memory cap on the "
+                                     "memory"), "row_topk_threshold")}
+    # the capped memory restores as the plain top-k of the trainer's
+    # memory at k_cap, scattered into zeros, bit for bit
+    want = densify_rows_ref(mem_b, *row_topk_ref(mem_b, k_cap))
+    if not same_bits(rmem_b, want):
+        fail(f"serve wire checkpoint: the restored memory of bucket {b} is "
+             f"not the plain row top-k of the trainer's at k = {k_cap}")
+    print(f"serve wire checkpoint: the restored memory of bucket {b} is "
+          f"bitwise the plain row top-k of the trainer's at k = {k_cap}")
+    del upd, mem_b, rmem_b, want
+    torch.cuda.empty_cache()
+    entries = []
+    for label, (h, name) in held.items():
+        entries.append({
+            "name": f"{name} ({label})", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/topk_select.cu",
+            "replaces": "src/repro/kernels/topk_select.py:"
+            + ("315" if "threshold" in name else "285"),
+            "max_abs_err": 0.0, "ms": h[f"{name}_ms"],
+            "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+            "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+            "ok": True, "launches_from": f"serve stream, {label}",
+            "launches": counts[name]})
+    serve_small(dev)
+    print(f"serve phase: {time.perf_counter() - t_phase:.1f} s; decode ms a "
+          "step " + ", ".join(f"{a} {d['ms_per_step']:.3f}"
+                              for a, d in decode.items()))
+    return counts, entries
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3782,6 +4170,7 @@ def main() -> None:
                                RWKV_BYTES["per-leaf"])}
     by_path["logistic regression"] = phase_logreg(dev)
     phase_small(dev)
+    by_path["serve stream"], serve_kernels = phase_serve(dev)
     # each kernel's count from one of MOE_ARCH's runs: a fused branch's
     # from the run that takes it (fused_path_run), a top-k kernel's from
     # the per-leaf run of its selection
@@ -3816,6 +4205,7 @@ def main() -> None:
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}", **e, "ok": True,
             "launches_from": run, "launches": counts[name]})
+    kernels += serve_kernels
     if any(k["launches"] == 0 for k in kernels):
         fail(f"a kernel of the kernels line was never launched on its path: "
              f"{[(k['name'], k['launches_from']) for k in kernels]}")

@@ -5,7 +5,7 @@
 tests use. Every architecture of the reference is listed: the dense
 decoders, the two MoE decoders, rwkv6-3b and recurrentgemma-9b (the
 hybrid griffin family). ``MESHES`` names the worker layouts
-(``launch.mesh.mesh_from_config``).
+(``launch.mesh.mesh_from_config``), ``SHAPES`` the assigned input shapes.
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ from repro_torch.configs.base import (
     MoEConfig,
     PodRefreshConfig,
     RWKVConfig,
+    SHAPES,
+    ShapeConfig,
 )
 
 # the reference's ARCH_IDS, in its order
@@ -52,5 +54,6 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
 
 
 __all__ = ["ModelConfig", "MoEConfig", "RWKVConfig", "HybridConfig",
-           "MeshConfig", "MESHES", "PodRefreshConfig", "ARCH_IDS",
+           "MeshConfig", "MESHES", "PodRefreshConfig", "ShapeConfig",
+           "SHAPES", "ARCH_IDS",
            "get_config", "get_smoke_config"]

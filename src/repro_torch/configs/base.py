@@ -1,7 +1,8 @@
 """Configuration dataclasses (the port's own copy of
 ``repro.configs.base``'s ``ModelConfig``, ``MoEConfig``, ``RWKVConfig``,
-``HybridConfig``, ``PodRefreshConfig`` and ``MeshConfig`` with its
-``MESHES``, restricted to what the port runs).
+``HybridConfig``, ``ShapeConfig`` with its ``SHAPES``,
+``PodRefreshConfig`` and ``MeshConfig`` with its ``MESHES``, restricted
+to what the port runs).
 
 One ``ModelConfig`` per architecture lives in
 ``repro_torch/configs/<arch_id>.py``; each exposes ``config()`` (full
@@ -85,6 +86,28 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

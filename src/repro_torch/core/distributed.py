@@ -1139,6 +1139,7 @@ def bucketed_sync_gradients(
     level_bytes: Optional[dict] = None,
     grad_bufs: Optional[Sequence[torch.Tensor]] = None,
     quant_noise=None,
+    return_bufs: bool = False,
 ):
     """PARALLEL-MEM-SGD gradient exchange over flat buckets.
 
@@ -1173,7 +1174,11 @@ def bucketed_sync_gradients(
     Returns (update_tree [float32 views into the update buffers, SUBTRACT
     from params], new_memory_bufs, bytes_per_worker_per_step:
     ``bucketed_message_bytes`` at the layout's n_data, the padded gathers
-    at the static k).
+    at the static k). With ``return_bufs`` a fourth item follows: the
+    update buffers themselves, one float32 (rows, cols) buffer per bucket
+    (what ``launch.delta_stream.encode_delta_bufs`` encodes). Every sync
+    makes them anew, in every overlap mode, so they stay valid after the
+    next step.
     """
     cfg.validate(plan)
     layout = _two_level_layout(cfg, layout)
@@ -1227,8 +1232,9 @@ def bucketed_sync_gradients(
                                  cfg.overlap_depth())
     total = bucketed_message_bytes(
         cfg, plan, n_data=layout.n_data if layout is not None else None)
-    return (bk.unpack(plan, [upd for upd, _ in outs]),
-            tuple(mem for _, mem in outs), total)
+    bufs = tuple(upd for upd, _ in outs)
+    ret = (bk.unpack(plan, bufs), tuple(mem for _, mem in outs), total)
+    return ret + (bufs,) if return_bufs else ret
 
 
 def _rank() -> int:

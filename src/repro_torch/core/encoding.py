@@ -46,8 +46,15 @@ collectives take its int32 view (``buf.view(torch.int32)``).
    apart from the level, so a (-0.0, 0) padded slot (code 1) decodes to
    -0.0. Quantizing is ``optim.qsgd.quantize_rows``.
 
-Not ported: ``transcode`` and the snapshot codec (absent; ROADMAP lists
-them).
+5. **Transcode** (``transcode``): a message's value section re-encoded
+   in another value dtype, its index section untouched (the fan-out
+   hub's bf16 tier).
+
+6. **Snapshot records** (``SnapshotRecord``, ``snapshot_encode``,
+   ``snapshot_decode``): one (rows, cols) buffer serialized through the
+   codec: the entries that differ from a base buffer (or from zero),
+   exactly, or a lossy per-row top-k cap, or a dense fallback (wire
+   checkpoints and the hub's snapshot resync).
 """
 from __future__ import annotations
 
@@ -575,3 +582,198 @@ def repad(spec: WireSpec, small_spec: WireSpec,
     idx = torch.cat([idx, torch.zeros((spec.rows, pad), dtype=torch.int32,
                                       device=idx.device)], dim=1)
     return encode(spec, vals, idx, live_n=raw_live)
+
+
+def transcode(spec: WireSpec, buf: torch.Tensor,
+              value_dtype: str = "bfloat16") -> torch.Tensor:
+    """Re-encode a wire message's VALUE section in another dtype, the
+    index section untouched: one float32 message, transcoded once, serves
+    every bf16 replica of the fan-out hub. float32 -> bf16 rounds to
+    nearest even (lossy); bf16 -> float32 is exact. The result is laid out
+    at ``spec.with_value_dtype(value_dtype)`` (its live_n word 0)."""
+    vals, idx = decode(spec, buf)
+    return encode(spec.with_value_dtype(value_dtype), vals, idx)
+
+
+# ---------------------------------------------------------------------------
+# snapshot records (wire-compressed buffer dumps; checkpoint + fan-out resync)
+# ---------------------------------------------------------------------------
+
+# elements per row chunk of the snapshot's support scan: its int32
+# cumulative counts and int64 scatter indices stay within ~0.5 GB
+SNAPSHOT_CHUNK = 1 << 24
+
+
+@dataclasses.dataclass(frozen=True)
+class SnapshotRecord:
+    """One (rows, cols) buffer serialized through the packed wire codec.
+
+    Three encodings, chosen by ``snapshot_encode``:
+
+    * exact sparse: every entry differing from the reference (``base``
+      buffer, or zero) is on the wire; decode reproduces the buffer BIT
+      FOR BIT (parameter buckets, whose drift from the boot checkpoint
+      has bounded support under sparse training).
+    * lossy sparse: per-row top-k by magnitude (``k=`` cap); decode
+      reproduces the selected entries bit for bit and zeros the rest.
+      ``dropped_frac`` reports the discarded squared mass (the
+      error-feedback memory).
+    * dense fallback: when the sparse layout would not be smaller, the
+      buffer ships as a ``kind="dense"`` message (exact in the wire
+      dtype).
+    """
+
+    spec: WireSpec
+    buf: torch.Tensor  # uint32 wire buffer of exactly spec.words words
+    vs_base: bool  # decode overlays onto the base buffer (else zeros)
+    exact: bool  # decode(..) reproduces the buffer bit for bit
+    dense_nbytes: int  # what the dense f32-per-item dump would cost
+    dropped_frac: float  # squared-mass fraction lost (0.0 when exact)
+
+    @property
+    def nbytes(self) -> int:
+        """Exact bytes on the wire / in the checkpoint file."""
+        return self.spec.nbytes
+
+
+def _bitpattern(x: torch.Tensor) -> torch.Tensor:
+    """Values -> their bit patterns (a signed integer view), so that the
+    support mask sees every BITWISE difference: float != misses -0.0
+    against +0.0, which would break an exact record's restore."""
+    return x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
+
+
+def _row_chunks(rows: int, cols: int):
+    step = max(1, SNAPSHOT_CHUNK // max(cols, 1))
+    return [(r, min(rows, r + step)) for r in range(0, rows, step)]
+
+
+def _support_mask(buf: torch.Tensor, base: Optional[torch.Tensor]
+                  ) -> torch.Tensor:
+    """Where ``buf``'s bits differ from ``base``'s (from zero's without a
+    base: -0.0 counts as set)."""
+    if base is None:
+        return _bitpattern(buf) != 0
+    return _bitpattern(buf) != _bitpattern(base)
+
+
+def _snapshot_indices_exact(mask: torch.Tensor, k: int) -> torch.Tensor:
+    """Per row: the indices of the True entries ascending, then of the
+    False entries ascending, the first k of them (int32): the reference's
+    ``argsort(~mask, stable=True)[:, :k]``. All indices of a row are
+    distinct, so a scatter of the buffer's own values at them is exact.
+
+    No sort: an entry's slot is its rank among its row's set entries, or
+    the row's count of set entries plus its rank among the unset ones,
+    from one int32 running count; the entries at slot k or later all go
+    to a discarded column k. Peak memory: 17 bytes an element of ``mask``
+    (the int32 count and slot, the int64 scatter index) and the
+    (rows, k + 1) output; ``snapshot_encode`` passes row chunks of at most
+    ``SNAPSHOT_CHUNK`` elements."""
+    rows, cols = mask.shape
+    count = torch.cumsum(mask, dim=1, dtype=torch.int32)
+    j = torch.arange(cols, dtype=torch.int32, device=mask.device)
+    slot = torch.where(mask, count - 1, count[:, -1:] + j - count)
+    del count
+    out = torch.empty((rows, k + 1), dtype=torch.int32, device=mask.device)
+    out.scatter_(1, slot.clamp_(max=k).to(torch.int64), j.expand(rows, cols))
+    return out[:, :k].contiguous()
+
+
+def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """sum(x**2) in float32 terms, accumulated in float64 over row
+    chunks (a device scalar)."""
+    total = torch.zeros((), dtype=torch.float64, device=x.device)
+    for r0, r1 in _row_chunks(*x.shape):
+        total += torch.sum(torch.square(x[r0:r1].to(torch.float32)),
+                           dtype=torch.float64)
+    return total
+
+
+def snapshot_encode(buf: torch.Tensor, base: Optional[torch.Tensor] = None,
+                    *, k: Optional[int] = None,
+                    value_dtype: Optional[str] = None) -> SnapshotRecord:
+    """Serialize one 2D buffer through the packed codec.
+
+    ``base``: encode only the entries whose bits differ from ``base``'s
+    (exact delta against a reference; decode needs the same base). ``k``:
+    a lossy per-row top-|.| cap (only without ``base``), selected by
+    ``kernels.ops.row_topk`` (decreasing |v|, ties to the lowest index,
+    the reference's ``jax.lax.top_k``). With neither, every nonzero is
+    encoded exactly. Falls back to a dense message whenever sparse would
+    not be smaller, so the record never costs more than a dense dump and
+    one header. The support is scanned in row chunks (``SNAPSHOT_CHUNK``
+    elements), so no full-buffer mask or index array is made."""
+    from repro_torch.kernels.ops import row_topk
+
+    if buf.dim() != 2:
+        raise ValueError(
+            f"snapshot_encode wants a 2D buffer, got {tuple(buf.shape)}")
+    rows, cols = buf.shape
+    name = str(buf.dtype).removeprefix("torch.")
+    vd = value_dtype or name
+    if base is not None and k is not None:
+        raise ValueError("lossy k-cap and diff-vs-base are exclusive")
+    if base is not None and base.shape != buf.shape:
+        raise ValueError(f"base shape {tuple(base.shape)} != buffer "
+                         f"{tuple(buf.shape)}")
+    dense_nbytes = int(rows * cols * 4)
+    chunks = _row_chunks(rows, cols)
+    nnz = torch.zeros((), dtype=torch.int64, device=buf.device)
+    for r0, r1 in chunks:
+        mask = _support_mask(buf[r0:r1],
+                             None if base is None else base[r0:r1])
+        nnz = torch.maximum(nnz, mask.sum(dim=1).max())
+    need_k = max(1, int(nnz))
+    k_use = need_k if k is None else max(1, min(k, cols))
+    exact = k is None or need_k <= k_use
+    if exact:
+        k_use = need_k  # never ship more slots than the support needs
+
+    sparse_spec = WireSpec(rows, cols, min(k_use, cols), vd)
+    dense_spec = WireSpec(rows, cols, cols, vd, kind="dense")
+    if sparse_spec.nbytes >= dense_spec.nbytes:
+        # dense fallback: exact (in the wire dtype), one header of slack
+        return SnapshotRecord(
+            spec=dense_spec, buf=encode(dense_spec, buf), vs_base=False,
+            exact=vd == name, dense_nbytes=dense_nbytes, dropped_frac=0.0)
+    if exact:
+        idx = torch.cat([
+            _snapshot_indices_exact(
+                _support_mask(buf[r0:r1],
+                              None if base is None else base[r0:r1]),
+                sparse_spec.k)
+            for r0, r1 in chunks])
+        vals = torch.gather(buf, 1, idx.to(torch.int64))
+        dropped = 0.0
+    else:  # lossy top-k by magnitude (base is None here)
+        vals, idx = row_topk(buf, sparse_spec.k)
+        total = float(_sum_squares(buf))
+        kept = float(_sum_squares(vals))
+        dropped = 0.0 if total == 0.0 else max(0.0, 1.0 - kept / total)
+    return SnapshotRecord(
+        spec=sparse_spec, buf=encode(sparse_spec, vals, idx),
+        vs_base=base is not None, exact=exact and vd == name,
+        dense_nbytes=dense_nbytes, dropped_frac=dropped)
+
+
+def snapshot_decode(rec: SnapshotRecord, base: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Inverse of ``snapshot_encode``: record (+ the same ``base`` for a
+    ``vs_base`` record) -> a new (rows, cols) buffer in the wire dtype,
+    bit for bit the encoded one for an exact record. Decodes on
+    ``base``'s device when given, else on the record buffer's."""
+    spec = rec.spec
+    buf = rec.buf if base is None else rec.buf.to(base.device)
+    vals, idx = decode(spec, buf)
+    if spec.kind == "dense":
+        return vals.clone()  # a view of the record's buffer otherwise
+    dtype = getattr(torch, spec.value_dtype)
+    if rec.vs_base:
+        if base is None:
+            raise ValueError("record was encoded vs a base buffer")
+        out = base.to(dtype, copy=True)
+    else:
+        out = torch.zeros((spec.rows, spec.cols), dtype=dtype,
+                          device=vals.device)
+    return out.scatter_(1, idx.to(torch.int64), vals)

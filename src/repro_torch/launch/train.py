@@ -60,6 +60,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
+import json
 import os
 from typing import Optional
 
@@ -119,6 +120,13 @@ class TrainConfig:
     # draws from QuantNoise(quant_seed, count), so two runs with one seed
     # draw the same noise
     quant_seed: int = 0
+    # emit the applied update as packed per-bucket delta messages for
+    # serving replicas (launch.delta_stream): needs sync.bucketed and the
+    # memsgd or dense optimizer (whose parameter delta IS the synced
+    # update); each sync step then returns them after its metrics, a tuple
+    # of uint32 wire buffers
+    emit_deltas: bool = False
+    delta_value_dtype: str = "float32"  # bf16 halves the stream (lossy)
 
 
 def _eta_schedule(tc: TrainConfig):
@@ -295,7 +303,13 @@ def make_train_step(model, tc: TrainConfig, layout=None):
     in place. Call ``step.accum`` H - 1 times, then ``step``
     (``step.local_steps`` is H). At H = 1 the per-step path is unchanged.
     Under ``sync.quant`` each sync draws its rounding noise from
-    ``QuantNoise(tc.quant_seed, count)``."""
+    ``QuantNoise(tc.quant_seed, count)``.
+
+    With ``tc.emit_deltas`` every sync step returns one more item after
+    its metrics: the applied update as packed wire buffers, one per
+    bucket (``launch.delta_stream.encode_delta_bufs`` of the sync's update
+    buffers), laid out by ``step.delta_spec``; the local steps of
+    ``step.accum`` emit none."""
     sync = _sync_config(tc, layout)
     pshapes = model.param_shapes()
     plan = _bucket_plan(sync, pshapes)
@@ -309,6 +323,20 @@ def make_train_step(model, tc: TrainConfig, layout=None):
             "sync.local_steps > 1 requires sync.bucketed (the local "
             "accumulator lives in bucket space)")
     col_axes = sync_col_axes(pshapes)
+    dspec = None
+    if tc.emit_deltas:
+        if plan is None or tc.optimizer not in ("memsgd", "dense"):
+            raise ValueError(
+                "emit_deltas requires sync.bucketed and a plain memsgd/dense "
+                "optimizer (the parameter delta must equal the synced "
+                "update)")
+        from repro_torch.launch import delta_stream as ds
+
+        dspec = ds.make_delta_spec(
+            plan, sync,
+            workers=layout.world if layout is not None else world_size(),
+            n_pods=layout.n_pods if layout is not None else 1,
+            value_dtype=tc.delta_value_dtype)
     pod_k_max = None
     if sync.pod_dynamic:
         pod_k_max = tuple(
@@ -324,13 +352,21 @@ def make_train_step(model, tc: TrainConfig, layout=None):
         return (QuantNoise(tc.quant_seed, count) if sync.quant is not None
                 else None)
 
+    def emit(out, up_bufs):
+        """The step's outputs, with its delta when it emits one."""
+        if dspec is None:
+            return out
+        return out + (tuple(ds.encode_delta_bufs(dspec, up_bufs)),)
+
     def step(params, memory, opt, count, batch, pod_ks=None):
         leaves, treedef = tree_flatten(params)
         grads, metrics = _grads(model, params, batch, tc.microbatch)
+        up_bufs = None
         if plan is not None:
-            update, new_memory, _ = bucketed_sync_gradients(
+            update, new_memory, _, up_bufs = bucketed_sync_gradients(
                 sync, plan, memory, treedef.unflatten(grads), sync_eta(count),
-                layout=layout, pod_ks=pod_ks, quant_noise=noise(count))
+                layout=layout, pod_ks=pod_ks, quant_noise=noise(count),
+                return_bufs=True)
         else:
             update, new_memory, _ = sparse_sync_gradients(
                 sync, memory, treedef.unflatten(grads), sync_eta(count),
@@ -339,7 +375,9 @@ def make_train_step(model, tc: TrainConfig, layout=None):
         with torch.no_grad():
             opt = apply_optimizer(leaves, opt, count,
                                   treedef.flatten_up_to(update))
-        return params, new_memory, opt, count + 1, _mean_metrics(metrics)
+        del update
+        return emit((params, new_memory, opt, count + 1,
+                     _mean_metrics(metrics)), up_bufs)
 
     def accum(params, memory, acc, opt, count, batch):
         treedef = tree_flatten(params)[1]
@@ -352,21 +390,25 @@ def make_train_step(model, tc: TrainConfig, layout=None):
         leaves, treedef = tree_flatten(params)
         params, memory, acc, opt, _, metrics = accum(params, memory, acc,
                                                      opt, count, batch)
-        update, new_memory, _ = bucketed_sync_gradients(
+        update, new_memory, _, up_bufs = bucketed_sync_gradients(
             sync, plan, memory, None, 1.0, layout=layout, pod_ks=pod_ks,
-            grad_bufs=acc, quant_noise=noise(count))
+            grad_bufs=acc, quant_noise=noise(count), return_bufs=True)
         for a in acc:
             a.zero_()
         with torch.no_grad():
             opt = apply_optimizer(leaves, opt, count,
                                   treedef.flatten_up_to(update))
-        return params, new_memory, acc, opt, count + 1, metrics
+        del update
+        return emit((params, new_memory, acc, opt, count + 1, metrics),
+                    up_bufs)
 
     if H > 1:
         step = sync_step
         step.accum = accum
     step.sync, step.plan, step.col_axes = sync, plan, col_axes
     step.layout, step.pod_k_max, step.local_steps = layout, pod_k_max, H
+    if dspec is not None:
+        step.delta_spec = dspec  # the wire layout replicas decode against
     return step
 
 
@@ -537,7 +579,9 @@ def _telemetry_bytes(model, step, pod_ks=None) -> dict:
 
 def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
           seed: int = 0, params=None, log_every: int = 10, telemetry=None,
-          layout=None, pod_k_schedule=None):
+          layout=None, pod_k_schedule=None, checkpointer=None,
+          ckpt_every: int = 0, delta_sink=None, ckpt_wire: bool = False,
+          ckpt_memory_ratio: float = 0.05):
     """End-to-end training loop on ``device`` (CUDA unless the caller asks
     for the CPU). ``batches``: iterator of batches already on ``device``
     (see ``repro_torch.data.DeviceBatcher``; this worker's slice under
@@ -562,6 +606,15 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
     refreshed run's ``telemetry.refresh_schedule`` reproduces it bit for
     bit.
 
+    With ``tc.emit_deltas``, ``delta_sink(step_index, wire_msgs)`` is
+    called with each sync step's packed delta buffers (decode them against
+    ``make_train_step(...).delta_spec``; ``launch.delta_stream``).
+    ``checkpointer`` (a ``repro_torch.checkpoint.Checkpointer``) saves
+    every ``ckpt_every`` steps: ``{"params": params}`` densely, or with
+    ``ckpt_wire`` (needs ``sync.bucketed``) through the packed codec
+    (``Checkpointer.save_wire``): the params diff-encoded against the boot
+    params, the memory capped at ``ckpt_memory_ratio`` a row.
+
     Qsparse-local-SGD (``sync.local_steps`` = H > 1): step i syncs when
     (i + 1) % H == 0 (round j = i // H) and only accumulates otherwise
     (``step.accum``); a pod refresh runs on sync steps, at rounds j > 0
@@ -569,6 +622,8 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
     sync compresses); the telemetry's bytes are a step's share of the
     sync's (``amortized_bytes_per_step``)."""
     device = resolve_device(device)
+    if ckpt_wire and not tc.sync.bucketed:
+        raise ValueError("ckpt_wire requires sync.bucketed (a BucketPlan)")
     refresh = tc.pod_refresh if (
         tc.pod_refresh is not None and tc.pod_refresh.enabled) else None
     if refresh is not None or pod_k_schedule is not None:
@@ -590,6 +645,11 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
                                 _sync_config(tc, layout)) if dyn else None)
     tc, batches = _maybe_autotune_pod_ratios(model, layout, tc, plan, params,
                                              batches, calib=calib)
+    base_params = None
+    if ckpt_wire and checkpointer is not None:
+        from repro_torch.launch.serve import replica_copy
+
+        base_params = replica_copy(params)  # the step updates params in place
     step = make_train_step(model, tc, layout)
     H = step.local_steps
     acc = bk.init_local_accum(plan, device=device) if H > 1 else None
@@ -661,14 +721,17 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
             tel.pod_refresh(i, live_ks, cross_bytes=cross)
         args = (live_ks,) if dyn else ()
         if H == 1:
-            params, memory, opt, count, metrics = step(params, memory, opt,
-                                                       count, batch, *args)
+            out = step(params, memory, opt, count, batch, *args)
+            params, memory, opt, count, metrics = out[:5]
         elif is_sync:
-            params, memory, acc, opt, count, metrics = step(
-                params, memory, acc, opt, count, batch, *args)
+            out = step(params, memory, acc, opt, count, batch, *args)
+            params, memory, acc, opt, count, metrics = out[:6]
         else:
-            params, memory, acc, opt, count, metrics = step.accum(
-                params, memory, acc, opt, count, batch)
+            out = step.accum(params, memory, acc, opt, count, batch)
+            params, memory, acc, opt, count, metrics = out
+        if tc.emit_deltas and is_sync and delta_sink is not None:
+            delta_sink(i, out[-1])
+        del out
         do_log = bool(log_every and (i % log_every == 0 or i == n_steps - 1))
         if pending is not None:
             _drain(pending)
@@ -676,6 +739,14 @@ def train(model, tc: TrainConfig, batches, n_steps: int, *, device="cuda",
         if tel.should_stop:
             print(f"telemetry early stop @ step {i}: {tel.stop_reason}")
             break
+        if checkpointer is not None and ckpt_every and (
+                (i + 1) % ckpt_every == 0):
+            if ckpt_wire:
+                checkpointer.save_wire(
+                    i + 1, params, memory, step.plan, base_params=base_params,
+                    memory_ratio=ckpt_memory_ratio)
+            else:
+                checkpointer.save(i + 1, {"params": params})
     if pending is not None:
         _drain(pending)  # the last issued step's loss
     if tel_owned:
@@ -700,10 +771,12 @@ def _sync_from_args(ap, args) -> SyncConfig:
     ``SyncConfig.preset`` bundle is the base and only flags given
     explicitly (other than their default) override it, as the reference's
     ``_sync_from_args`` does; without one, every flag lands in the
-    grouped configs. ``--pod-refresh-every``, ``--local-steps`` above 1
-    and ``--wire-quant`` imply the bucketed path."""
-    bucketed = (args.bucketed or args.pod_refresh_every > 0
-                or args.local_steps > 1 or args.wire_quant is not None)
+    grouped configs. ``--emit-deltas``, ``--ckpt-wire``,
+    ``--pod-refresh-every``, ``--local-steps`` above 1 and ``--wire-quant``
+    imply the bucketed path."""
+    bucketed = (args.bucketed or args.emit_deltas or args.ckpt_wire
+                or args.pod_refresh_every > 0 or args.local_steps > 1
+                or args.wire_quant is not None)
     fields = {field: getattr(args, flag) for flag, field in _OVERRIDES}
     fields["overlap"] = _OVERLAP[args.overlap]
     if args.preset is not None:
@@ -761,10 +834,15 @@ def main(argv=None):
         torchrun --nproc_per_node 4 -m repro_torch.launch.train \
             --platform cpu --pods 2 --strategy hierarchical --bucketed \
             --wire packed --pod-refresh-every 2 [--overlap on]
+        python -m repro_torch.launch.train --platform cpu --emit-deltas \
+            --ckpt-wire --ckpt-dir DIR
 
     Each worker trains on its slice of the global ``--batch``; only rank
-    0 prints.
+    0 prints. With ``--ckpt-dir`` rank 0 checkpoints every ``--steps //
+    2`` steps, and ``--ckpt-wire`` prints the last wire checkpoint's size;
+    ``--emit-deltas`` prints the delta stream's bytes.
     """
+    from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import ARCH_IDS, MESHES, get_smoke_config
     from repro_torch.data import ShardedBatcher, token_batches
     from repro_torch.models import build_model
@@ -851,6 +929,20 @@ def main(argv=None):
     ap.add_argument("--platform", default="cuda", choices=("cuda", "cpu"),
                     help="device to train on; 'cpu' runs every kernel's "
                          "plain version")
+    ap.add_argument("--emit-deltas", action="store_true",
+                    help="stream packed parameter deltas for serving "
+                         "replicas (launch.delta_stream; implies "
+                         "--bucketed)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint into this directory every steps // 2 "
+                         "steps")
+    ap.add_argument("--ckpt-wire", action="store_true",
+                    help="checkpoint params and memory through the packed "
+                         "wire codec instead of dense float32 dumps "
+                         "(implies --bucketed)")
+    ap.add_argument("--ckpt-memory-ratio", type=float, default=0.05,
+                    help="per-row top-k ratio of the wire checkpoint's "
+                         "lossy memory section")
     args = ap.parse_args(argv)
 
     sync = _sync_from_args(ap, args)
@@ -869,14 +961,38 @@ def main(argv=None):
                    if args.pod_refresh_every > 0 else None)
         tc = TrainConfig(optimizer=args.optimizer, eta=args.eta, sync=sync,
                          pod_autotune=not args.no_pod_autotune,
-                         pod_refresh=refresh, quant_seed=args.quant_seed)
+                         pod_refresh=refresh, quant_seed=args.quant_seed,
+                         emit_deltas=args.emit_deltas)
         batches = ShardedBatcher(
             token_batches(cfg.vocab_size, args.batch, args.seq, seed=0),
             device)
+        ck = (Checkpointer(args.ckpt_dir)
+              if args.ckpt_dir and rank == 0 else None)
+        streamed = [0]
+
+        def sink(i, msgs):
+            streamed[0] += sum(m.nbytes for m in msgs)
+
         tel = Telemetry(printer=print if rank == 0 else lambda line: None)
         with tel:
-            return train(model, tc, batches, n_steps=args.steps,
-                         device=device, telemetry=tel, layout=layout)
+            out = train(model, tc, batches, n_steps=args.steps,
+                        device=device, telemetry=tel, layout=layout,
+                        checkpointer=ck, ckpt_every=max(1, args.steps // 2),
+                        delta_sink=sink if args.emit_deltas else None,
+                        ckpt_wire=args.ckpt_wire,
+                        ckpt_memory_ratio=args.ckpt_memory_ratio)
+        if args.ckpt_wire and ck is not None:
+            with open(ck._wire_path(ck.latest_wire_step()) + ".json") as f:
+                w = json.load(f)["wire"]
+            print(f"wire checkpoint: {w['nbytes'] / 1e6:.2f} MB (dense f32 "
+                  f"dump: {w['dense_nbytes'] / 1e6:.2f} MB, "
+                  f"x{w['ratio_vs_dense']:.1f} smaller)")
+        if args.emit_deltas and rank == 0:
+            dense = model.n_params() * 4 * args.steps
+            print(f"delta stream: {streamed[0] / 1e6:.2f} MB over "
+                  f"{args.steps} steps (dense refresh would be "
+                  f"{dense / 1e6:.2f} MB)")
+        return out
     finally:
         if made:
             torch.distributed.destroy_process_group()

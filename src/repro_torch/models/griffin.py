@@ -29,9 +29,13 @@ the two kinds hold different leaves. The math follows the reference's
 cast points: the params come in the compute dtype (``lam`` too), the
 RG-LRU runs in float32 (the bias adds promote to it) and casts its output
 back, the conv sums its taps in the compute dtype. ``jax.nn.gelu`` is the
-tanh approximation. The decode half (``rg_lru_step``,
-``recurrent_block_step``, ``init_state``, ``decode_step``) is not ported
-yet.
+tanh approximation.
+
+Decode (``decode_step``) runs one token per call from each layer's
+carried state (``init_state``): the RG-LRU's float32 h and the causal
+conv's last (width - 1) inputs for a recurrent layer (``rg_lru_step``,
+``recurrent_block_step``), a KV ring buffer of min(max_len, attn_window)
+slots for a local-attention layer (``layers.attention_decode``).
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.utils.platform import resolve_device
 
 LRU_C = 8.0
 _F32 = torch.float32
@@ -167,6 +172,19 @@ def rg_lru(p: dict, x: torch.Tensor, h0: torch.Tensor
     return y.to(x.dtype), y[:, -1]
 
 
+def rg_lru_step(p: dict, x: torch.Tensor, h: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token of the RG-LRU. x: (B, R); h: (B, R) float32. Returns (y
+    in x's dtype, the new h in float32)."""
+    xf = x.to(_F32)
+    r = torch.sigmoid(xf @ p["w_a"].to(_F32) + p["b_a"])
+    i = torch.sigmoid(xf @ p["w_x"].to(_F32) + p["b_x"])
+    a = torch.exp(-LRU_C * F.softplus(p["lam"]) * r)
+    h = a * h + torch.sqrt(torch.clamp(1.0 - torch.square(a), min=1e-12)) * (
+        i * xf)
+    return h.to(x.dtype), h
+
+
 def causal_conv(p: dict, x: torch.Tensor,
                 carry: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -194,6 +212,23 @@ def recurrent_block(p: dict, x: torch.Tensor, state: dict
     return out, {"h": h, "conv": conv_carry}
 
 
+def recurrent_block_step(p: dict, x: torch.Tensor, state: dict
+                         ) -> Tuple[torch.Tensor, dict]:
+    """One token of the recurrent block. x: (B, 1, D); state: {h (B, R)
+    float32, conv (B, W-1, R): the conv's last W - 1 inputs}. The conv is
+    the reference's step form: the window's W products summed at once,
+    which ``jnp.sum`` accumulates in float32 and rounds to the compute
+    dtype once (the training conv rounds each tap's sum)."""
+    main = x[:, 0] @ p["w_in"]
+    gate = _gelu(x[:, 0] @ p["w_gate_in"])
+    window = torch.cat([state["conv"], main[:, None, :]], dim=1)  # (B, W, R)
+    prod = window * p["conv_w"][None]
+    conv_out = torch.sum(prod.to(_F32), dim=1).to(prod.dtype) + p["conv_b"]
+    y, h = rg_lru_step(p, conv_out, state["h"])
+    out = (y * gate) @ p["w_out"]
+    return out[:, None, :], {"h": h, "conv": window[:, 1:]}
+
+
 def gated_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (_gelu(x @ p["w1"]) * (x @ p["w2"])) @ p["w3"]
 
@@ -203,9 +238,36 @@ def gated_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cuda") -> list:
+    """Each layer's zero decode state on ``device`` (the card unless the
+    caller asks for the CPU), a list as the blocks are: {h (B, R) float32,
+    conv (B, W-1, R) in ``dtype``} for a recurrent layer, {k, v (B, C, KV,
+    hd) in ``dtype``} with C = min(max_len, attn_window) for an attention
+    layer."""
+    device = resolve_device(device)
+    R, W = _lru_width(cfg), cfg.hybrid.conv_width
+    Ca = min(max_len, cfg.hybrid.attn_window)
+    states = []
+    for kind in layer_kinds(cfg):
+        if kind == "rec":
+            states.append({
+                "h": torch.zeros((batch, R), dtype=_F32, device=device),
+                "conv": torch.zeros((batch, W - 1, R), dtype=dtype,
+                                    device=device)})
+        else:
+            kv = (batch, Ca, cfg.n_kv_heads, cfg.hd)
+            states.append({
+                "k": torch.zeros(kv, dtype=dtype, device=device),
+                "v": torch.zeros(kv, dtype=dtype, device=device)})
+    return states
+
+
 def forward(params: dict, cfg, tokens: torch.Tensor, prefix_embeds=None,
-            window: Optional[int] = None
+            window: Optional[int] = None, last_only: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, T) -> (logits (B, T, V_padded), aux_loss ());
+    ``last_only``: the final position's logits only, (B, 1, V_padded)."""
     del prefix_embeds
     B, T = tokens.shape
     dt = getattr(torch, cfg.compute_dtype)
@@ -227,5 +289,34 @@ def forward(params: dict, cfg, tokens: torch.Tensor, prefix_embeds=None,
         x = x + t_out
         x = x + gated_mlp(blk["mlp"], L.rmsnorm(blk["ln2"], x, cfg.norm_eps))
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
     logits = x @ params["lm_head"].to(x.dtype)
     return logits, torch.zeros((), dtype=_F32, device=dev)
+
+
+def decode_step(params: dict, cfg, cache: dict, tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, dict]:
+    """cache: {"layers": [each layer's state], "index": a host int}.
+    tokens: (B,) -> (logits (B, V_padded), the new cache). An attention
+    layer writes its KV ring in place; a recurrent layer's state is
+    replaced. The cache passed in is consumed (the reference donates it):
+    use the returned one."""
+    dt = getattr(torch, cfg.compute_dtype)
+    x = params["embed"][tokens][:, None, :].to(dt)
+    idx = cache["index"]
+    new_states = []
+    for blk, kind, st in zip(params["blocks"], layer_kinds(cfg),
+                             cache["layers"]):
+        h_in = L.rmsnorm(blk["ln1"], x, cfg.norm_eps)
+        if kind == "rec":
+            t_out, st = recurrent_block_step(blk["rec"], h_in, st)
+        else:
+            t_out = L.attention_decode(blk["attn"], cfg, h_in, st["k"],
+                                       st["v"], idx, cfg.hybrid.attn_window)
+        x = x + t_out
+        x = x + gated_mlp(blk["mlp"], L.rmsnorm(blk["ln2"], x, cfg.norm_eps))
+        new_states.append(st)
+    x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    logits = x[:, 0] @ params["lm_head"].to(x.dtype)
+    return logits, {"layers": new_states, "index": idx + 1}

@@ -298,6 +298,39 @@ def attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
 
 
+def attention_decode(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, cur_index: int,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One-token decode against a KV cache, ring-buffered when windowed
+    (the reference's ``attention_decode``).
+
+    x: (B, 1, D). cache_k, cache_v: (B, C, KV, hd) with C = min(max_len,
+    window). ``cur_index``: the tokens already in the cache (a host int).
+    The token's k and v, RoPE'd at the absolute position ``cur_index``,
+    are written IN PLACE to slot ``cur_index % C`` (the reference donates
+    the cache and returns the updated one); the query attends to the
+    slots ``j < min(cur_index + 1, C)``: all C once the ring is full.
+    ``window`` is the reference's argument, whose two branches mask
+    alike. Returns out (B, 1, D)."""
+    del window
+    B = x.shape[0]
+    C = cache_k.shape[1]
+    q, k, v = _qkv(p, cfg, x)
+    pos = torch.full((B, 1), cur_index, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    slot = cur_index % C
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    valid = torch.arange(C, device=x.device) < min(cur_index + 1, C)
+    out = _sdpa(q, cache_k, cache_v, valid[None, None, None, :],
+                cfg.n_heads // cfg.n_kv_heads)
+    # _sdpa's output comes in the cache's dtype: JAX promotes a bf16 one
+    # against float32 weights, torch's matmul wants one dtype
+    out = out.to(torch.promote_types(out.dtype, p["wo"].dtype))
+    return out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------

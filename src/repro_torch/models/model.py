@@ -1,11 +1,17 @@
-"""Model bundle: family dispatch, init, forward, loss (port of
-``repro.models.model``'s training half for the dense, MoE, RWKV and
-hybrid griffin families).
+"""Model bundle: family dispatch, init, forward, loss, prefill and decode
+(port of ``repro.models.model`` for the dense, MoE, RWKV and hybrid
+griffin families).
 
     model = build_model(cfg)
     params = model.init(seed=0, device="cuda")
     loss, metrics = model.loss(params, batch)
     shapes = model.param_shapes()          # meta tensors, no storage
+    logits = model.prefill_logits(params, {"tokens": tokens})
+    cache = model.init_cache(batch, max_len, device="cuda")
+    logits, cache = model.decode_step(params, cache, tokens)   # (B,)
+
+A decode step updates the cache in place where the reference donates it
+and returns the cache to use next; its ``index`` is a host int.
 """
 from __future__ import annotations
 
@@ -85,10 +91,49 @@ class Model:
             self._cast(params), self.cfg, batch["tokens"],
             prefix_embeds=batch.get("prefix_embeds"), window=window)
 
+    def prefill_logits(self, params, batch) -> torch.Tensor:
+        """Last-position logits (B, V_padded) only: the LM head runs on
+        the final position (no (B, S, V) logits)."""
+        logits, _ = self._mod.forward(
+            self._cast(params), self.cfg, batch["tokens"],
+            prefix_embeds=batch.get("prefix_embeds"), last_only=True)
+        return logits[:, -1]
+
     def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
         logits, aux = self.forward(params, batch)
         xent, n_tok = _xent(self.cfg, logits, batch["labels"])
         return xent + aux, {"xent": xent, "aux": aux, "n_tokens": n_tok}
+
+    # -- decode path ----------------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device="cuda"):
+        """The family's zero decode cache on ``device`` (the card unless
+        the caller asks for the CPU): a KV cache in ``dtype`` (dense, MoE),
+        the float32 recurrent state (RWKV: ``dtype`` unused, as in the
+        reference), or griffin's per-layer list; each with its ``index``."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        if cfg.family in ("dense", "moe"):
+            return transformer.init_cache(cfg, batch, max_len, dtype, device)
+        if cfg.family == "rwkv":
+            return rwkv.init_state(cfg, batch, device)
+        if cfg.family == "hybrid":
+            return {"layers": griffin.init_state(cfg, batch, max_len, dtype,
+                                                 device),
+                    "index": 0}
+        raise ValueError(cfg.family)
+
+    def cache_shapes(self, batch: int, max_len: int, dtype=torch.bfloat16):
+        """The cache on the ``meta`` device: shapes and dtypes only."""
+        return self.init_cache(batch, max_len, dtype, device="meta")
+
+    def decode_step(self, params, cache, tokens):
+        """tokens (B,) -> (logits (B, V_padded), cache). The float32 params
+        are cast to the compute dtype on every call, as the reference's
+        ``_cast`` does inside its step."""
+        return self._mod.decode_step(self._cast(params), self.cfg, cache,
+                                     tokens)
 
     def n_params(self) -> int:
         return sum(p.numel() for p in tree_leaves(self.param_shapes()))

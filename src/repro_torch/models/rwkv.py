@@ -24,7 +24,8 @@ computed for all chunks at once; only the carry of the (n x n) state from
 chunk to chunk, ``S' = diag(A) S + KV``, is a Python loop, one op per
 chunk, in float32. Block leaves are stacked (leading L axis) as in the
 reference, and the forward walks the stack with a Python loop where the
-reference scans. ``decode_step`` is not ported yet.
+reference scans. ``decode_step`` runs one token per call from the
+carried state (``init_state``), each layer's scan fallback at T = 1.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.utils.platform import resolve_device
 
 DECAY_CLAMP = 4.0
 _F32 = torch.float32
@@ -269,10 +271,12 @@ def block_apply(cfg, p, x, st):
 # ---------------------------------------------------------------------------
 
 
-def init_state(cfg, batch: int, device="cpu") -> dict:
-    """Each layer's zero state: the two token shifts and the WKV state, in
-    float32 (the reference's decode ``index`` comes with the serving
-    slice)."""
+def init_state(cfg, batch: int, device="cuda") -> dict:
+    """Each layer's zero state on ``device`` (the card unless the caller
+    asks for the CPU): the two token shifts and the WKV state, in float32,
+    and the decode position ``index``, a host int (the reference's ()
+    int32)."""
+    device = resolve_device(device)
     D = cfg.d_model
     n = cfg.rwkv.head_dim
     H = D // n
@@ -281,14 +285,17 @@ def init_state(cfg, batch: int, device="cpu") -> dict:
         "time_shift": torch.zeros((L_, batch, D), dtype=_F32, device=device),
         "chan_shift": torch.zeros((L_, batch, D), dtype=_F32, device=device),
         "wkv": torch.zeros((L_, batch, H, n, n), dtype=_F32, device=device),
+        "index": 0,
     }
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor, prefix_embeds=None,
-            window=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            window=None, last_only: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, T) -> (logits (B, T, V_padded), aux_loss ()). Each layer
     starts from the zero state of ``init_state``; no RWKV config has
-    prefix embeddings."""
+    prefix embeddings. ``last_only``: the final position's logits only,
+    (B, 1, V_padded)."""
     del prefix_embeds, window
     B, T = tokens.shape
     x = params["embed"][tokens].to(getattr(torch, cfg.compute_dtype))
@@ -299,5 +306,29 @@ def forward(params: dict, cfg, tokens: torch.Tensor, prefix_embeds=None,
             "time_shift": st["time_shift"][i],
             "chan_shift": st["chan_shift"][i], "wkv": st["wkv"][i]})
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
     logits = x @ params["lm_head"].to(x.dtype)
     return logits, torch.zeros((), dtype=_F32, device=x.device)
+
+
+def decode_step(params: dict, cfg, cache: dict, tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, dict]:
+    """tokens: (B,) -> (logits (B, V_padded), cache): one token through
+    every layer's ``block_apply`` from its carried state, O(1) in the
+    sequence length. Each layer's new token shifts and WKV state are
+    written back into the cache's float32 tensors in place (the
+    reference's ``astype(float32)``); the returned cache holds them and
+    ``index`` + 1."""
+    x = params["embed"][tokens][:, None, :].to(
+        getattr(torch, cfg.compute_dtype))  # (B, 1, D)
+    for i, blk in enumerate(L.unstack_layers(params["blocks"],
+                                             cfg.n_layers)):
+        x, st = block_apply(cfg, blk, x, {
+            "time_shift": cache["time_shift"][i],
+            "chan_shift": cache["chan_shift"][i], "wkv": cache["wkv"][i]})
+        for name in ("time_shift", "chan_shift", "wkv"):
+            cache[name][i].copy_(st[name])
+    x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    logits = x[:, 0] @ params["lm_head"].to(x.dtype)
+    return logits, {**cache, "index": cache["index"] + 1}

@@ -1,5 +1,6 @@
 """Decoder-only transformer, dense GQA and MoE variants (port of
-``repro.models.transformer``'s training forward).
+``repro.models.transformer``: the forward, prefill's ``last_only`` and the
+one-token decode against a KV cache).
 
 Covers the reference's families:
   dense: qwen1.5-4b (qkv bias), yi-9b, qwen3-4b (qk_norm), granite-3-8b,
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.utils.platform import resolve_device
 
 
 def init_params(cfg, device="cpu", generator: Optional[torch.Generator] = None
@@ -79,8 +81,12 @@ def embed_tokens(cfg, params, tokens: torch.Tensor,
 
 def forward(params: dict, cfg, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None,
-            window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) -> (logits (B, S, V_padded), aux_loss ())."""
+            window: Optional[int] = None, last_only: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) -> (logits (B, S, V_padded), aux_loss ()).
+
+    ``last_only`` applies the LM head to the final position only, (B, 1,
+    V_padded) logits (prefill)."""
     B, S = tokens.shape
     window = window if window is not None else cfg.sliding_window
     x = embed_tokens(cfg, params, tokens, prefix_embeds)
@@ -92,8 +98,56 @@ def forward(params: dict, cfg, tokens: torch.Tensor,
         if a is not None:
             aux = aux + a
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
+    return _lm_head(cfg, params, x), aux
+
+
+def _lm_head(cfg, params, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].T.to(x.dtype)
-    else:
-        logits = x @ params["lm_head"].to(x.dtype)
-    return logits, aux
+        return x @ params["embed"].T.to(x.dtype)
+    return x @ params["lm_head"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode (one token against the KV cache)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cuda") -> dict:
+    """Stacked KV cache (L, B, C, KV, hd) with C = min(max_len, window)
+    (a ring buffer under a sliding window), zeros in ``dtype`` on
+    ``device`` (the card unless the caller asks for the CPU), and the
+    decode position ``index``, a host int (the reference's () int32)."""
+    device = resolve_device(device)
+    C = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    shape = (cfg.n_layers, batch, C, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "index": 0}
+
+
+def decode_step(params: dict, cfg, cache: dict, tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, dict]:
+    """tokens: (B,) -> (logits (B, V_padded), cache). Each layer writes its
+    k and v into its slice of the stacked cache in place; the returned
+    cache holds those tensors and ``index`` + 1. A MoE layer routes the
+    batch's B tokens as one group (``moe.moe_ffn`` at S == 1)."""
+    dt = getattr(torch, cfg.compute_dtype)
+    x = params["embed"][tokens][:, None, :].to(dt)  # (B, 1, D)
+    idx = cache["index"]
+    for i, blk in enumerate(L.unstack_layers(params["blocks"],
+                                             cfg.n_layers)):
+        h = L.rmsnorm(blk["ln1"], x, cfg.norm_eps)
+        x = x + L.attention_decode(blk["attn"], cfg, h, cache["k"][i],
+                                   cache["v"][i], idx, cfg.sliding_window)
+        hn = L.rmsnorm(blk["ln2"], x, cfg.norm_eps)
+        if cfg.moe is not None:
+            ff, _ = moe_lib.moe_ffn(blk["moe"], cfg, hn)
+        else:
+            ff = L.swiglu(blk["mlp"], hn)
+        x = x + ff
+    x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    logits = _lm_head(cfg, params, x[:, 0])
+    return logits, {"k": cache["k"], "v": cache["v"], "index": idx + 1}

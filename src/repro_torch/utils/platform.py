@@ -67,7 +67,12 @@ FUSED_LOOP_CUTOVER_BF16 = {
 
 
 def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``: the card (raising when there is
+    none) or the CPU; the ``meta`` device (shapes and dtypes, no storage)
+    passes through."""
     dev = torch.device(device)
+    if dev.type == "meta":
+        return dev
     if dev.type not in PLATFORMS:
         raise ValueError(f"unsupported device {dev}; options: {PLATFORMS}")
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -1257,3 +1257,121 @@ def test_local_steps_launch_only_at_the_sync_step_on_the_card():
     # one step's gradients on the two devices: within float32 rounding
     for a, b in zip(out["cuda"][2], out["cpu"][2]):
         assert float((a - b).norm() / b.norm().clamp(min=1e-30)) < 1e-5
+
+
+# -- the serving side ---------------------------------------------------------
+
+# arch -> (smoke config overrides, decode steps, max_len): each KV ring
+# wraps (qwen3-4b's window of 8; griffin's local attention window of 64)
+SERVE_FAMILIES = {
+    "qwen3-4b": (dict(sliding_window=8), 12, 16),
+    "granite-moe-3b-a800m": ({}, 8, 16),
+    "rwkv6-3b": ({}, 10, 16),
+    "recurrentgemma-9b": (dict(n_layers=3), 70, 80),
+}
+
+
+@pytest.mark.parametrize("arch", list(SERVE_FAMILIES))
+def test_decode_on_the_card_matches_the_cpu(arch):
+    """Float32 decode of each family on the card and on the CPU from the
+    same params: every step's logits and the final caches within rtol
+    1e-4, atol 1e-4 of the largest (products summed in other orders)."""
+    _need_card()
+    over, S, max_len = SERVE_FAMILIES[arch]
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32", **over)
+    model = build_model(cfg)
+    host = model.init(seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, S)).astype(np.int32))
+    out = {}
+    for d in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(d, copy=True), host)
+        cache = model.init_cache(2, max_len, torch.float32, device=d)
+        logits = []
+        for t in range(S):
+            lg, cache = model.decode_step(params, cache, toks[:, t].to(d))
+            logits.append(lg.cpu())
+        out[d] = (torch.stack(logits, 1),
+                  [x.cpu() for x in tree_leaves(cache)
+                   if isinstance(x, torch.Tensor)])
+    want, got = out["cpu"], out["cuda"]
+    for g, w in zip([got[0]] + got[1], [want[0]] + want[1]):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+def _serve_stream(d):
+    """A rwkv6-3b smoke plan's delta spec (W = 2, ratio 0.05) and seeded
+    update buffers with support <= each wire's k', on ``d``."""
+    from repro_torch.core import buckets as bk
+    from repro_torch.launch import delta_stream as ds
+
+    model = build_model(get_smoke_config("rwkv6-3b"))
+    plan = bk.make_plan(model.param_shapes())
+    dspec = ds.make_delta_spec(plan, SyncConfig(ratio=0.05, bucketed=True),
+                               workers=2)
+    gen = torch.Generator().manual_seed(4)
+    bufs = []
+    for spec, w in zip(plan.buckets, dspec.wires):
+        g = torch.randn(spec.shape, generator=gen)
+        if spec.kind == "sparse":
+            vals, idx = row_topk_ref(g, w.k)
+            g = torch.zeros_like(g).scatter_(1, idx.long(), vals)
+        bufs.append(g.to(d))
+    return model, dspec, bufs
+
+
+def test_delta_encode_and_apply_on_the_card_match_the_cpu():
+    """``encode_delta_bufs`` (the row top-k kernel's re-select), the bf16
+    transcode and ``apply_delta`` on the card: the CPU's bytes and params
+    bit for bit, the re-select counted as a kernel launch."""
+    _need_card()
+    from repro_torch.launch import delta_stream as ds
+
+    model, dspec, bufs = _serve_stream("cpu")
+    want = ds.encode_delta_bufs(dspec, bufs)
+    before = sum(LAUNCHES.values())
+    got = ds.encode_delta_bufs(dspec, [b.cuda() for b in bufs])
+    n_sparse = sum(w.kind == "sparse" for w in dspec.wires)
+    assert sum(LAUNCHES.values()) == before + n_sparse
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    for g, w in zip(ds.transcode_delta(dspec, got),
+                    ds.transcode_delta(dspec, want)):
+        assert torch.equal(g.cpu(), w)
+    host = model.init(seed=0, device="cpu")
+    card = tree_map(lambda t: t.cuda(), host)
+    ds.apply_delta(host, dspec, want)
+    ds.apply_delta(card, dspec, got)
+    for a, b in zip(tree_leaves(card), tree_leaves(host)):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_snapshot_codec_on_the_card_matches_the_cpu(dtype):
+    """Exact diff records (signed zeros, irregular support, row chunks)
+    and the lossy top-k cap (the row top-k kernel) on the card: the CPU's
+    bytes and decode bit for bit."""
+    _need_card()
+    from repro_torch.core import encoding as enc
+
+    gen = torch.Generator().manual_seed(6)
+    base = torch.randn((300, 1024), generator=gen).to(dtype)
+    cur = base.clone()
+    flip = torch.rand(base.shape, generator=gen) < 0.02
+    cur[flip] = -cur[flip]
+    cur[0, 7], base[0, 7] = -0.0, 0.0
+    mem = (torch.randn((300, 1024), generator=gen) * 0.01).to(dtype)
+    for kw, x in ((dict(base=base), cur), (dict(k=51), mem)):
+        want = enc.snapshot_encode(x, **kw)
+        got = enc.snapshot_encode(
+            x.cuda(), **{k: (v.cuda() if torch.is_tensor(v) else v)
+                         for k, v in kw.items()})
+        assert got.spec == want.spec and got.exact == want.exact
+        assert torch.equal(got.buf.cpu(), want.buf)
+        assert abs(got.dropped_frac - want.dropped_frac) <= 1e-6
+        dec = enc.snapshot_decode(got, base=kw["base"].cuda()
+                                  if "base" in kw else None)
+        assert torch.equal(dec.cpu().view(torch.uint8),
+                           enc.snapshot_decode(want, base=kw.get("base"))
+                           .view(torch.uint8))

@@ -30,7 +30,10 @@ on and off, and saves what it got. The tests compare:
   packed == unpacked and the two ranks' updates bit for bit, the bytes
   the quant-aware accounting; a 2-rank ``main(["--preset",
   "qsparse_local", ...])`` (8 steps: two syncs) with the same losses and
-  params on both ranks and its step-0 loss the full-batch reference's.
+  params on both ranks and its step-0 loss the full-batch reference's;
+* the delta stream (invariant 4): 3 bucketed steps with ``emit_deltas``,
+  each rank's replica fed through ``apply_delta`` bit for bit its params,
+  the ranks' messages identical.
 """
 import itertools
 import os
@@ -196,9 +199,48 @@ def _worker(rank, tmp):
             params, memory, _, count, history = train_mod.main(QSPARSE_ARGS)
         out["qsparse main"] = (tree_leaves(params), list(memory), history,
                                count, text.getvalue())
+        out["delta"] = _delta_stream_run()
     finally:
         dist.destroy_process_group()
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def _delta_stream_run():
+    """This rank's 3 bucketed steps of rwkv6-3b's smoke config (float32,
+    the packed wire, threshold_onehot) with ``emit_deltas``, a replica fed
+    every step's messages through ``apply_delta``: (the replica bit for
+    bit the params, the messages, their bytes, the spec's)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.distributed import SyncConfig, WireConfig
+    from repro_torch.data import ShardedBatcher, token_batches
+    from repro_torch.launch import delta_stream as ds
+    from repro_torch.launch.serve import replica_copy
+    from repro_torch.launch.train import (TrainConfig, init_train_state,
+                                          make_train_step)
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config("rwkv6-3b")
+    model = build_model(cfg)
+    tc = TrainConfig(optimizer="memsgd", eta=0.5, emit_deltas=True,
+                     sync=SyncConfig(ratio=0.02, bucketed=True,
+                                     selection="threshold_onehot",
+                                     wire=WireConfig(wire="packed")))
+    params, memory, opt, count = init_train_state(model, tc, device="cpu",
+                                                  seed=0)
+    replica = replica_copy(params)
+    step = make_train_step(model, tc)
+    batches = iter(ShardedBatcher(token_batches(cfg.vocab_size, 8, 32,
+                                                seed=1), "cpu", prefetch=0))
+    msgs, nbytes = [], []
+    for _ in range(3):
+        params, memory, opt, count, _, delta = step(params, memory, opt,
+                                                    count, next(batches))
+        ds.apply_delta(replica, step.delta_spec, delta)
+        msgs.append(list(delta))
+        nbytes.append(sum(d.numel() * 4 for d in delta))
+    exact = all(torch.equal(_bits(a), _bits(b))
+                for a, b in zip(tree_leaves(replica), tree_leaves(params)))
+    return exact, msgs, nbytes, step.delta_spec.nbytes
 
 
 @pytest.fixture(scope="module")
@@ -450,3 +492,30 @@ def test_two_rank_main_runs_the_qsparse_local_preset(runs):
         jax.tree.map(jnp.asarray, params),
         {k: jnp.asarray(v) for k, v in batch.items()})
     np.testing.assert_allclose(h0[0][1], float(metrics["xent"]), rtol=1e-5)
+
+
+def test_delta_stream_replica_tracks_two_workers_bitwise(runs):
+    """Invariant 4 at W = 2 (``tests/test_wire_codec.py``'s delta stream
+    case): each rank's replica fed the 3 steps' packed deltas is bit for
+    bit its params; the two ranks emit the same bytes (the gathered update
+    is one), each step ``delta_spec.nbytes``, the support bound W * k a
+    row; the stream is under a quarter of a dense refresh."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import buckets as bk
+    from repro_torch.core.distributed import SyncConfig
+    from repro_torch.launch import delta_stream as ds
+    from repro_torch.models import build_model
+
+    (e0, m0, n0, spec0), (e1, m1, n1, spec1) = (runs[r]["delta"]
+                                                for r in range(W))
+    assert e0 and e1
+    assert n0 == n1 == [spec0] * 3 and spec0 == spec1
+    for a, b in zip(m0, m1):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    plan = bk.make_plan(build_model(get_smoke_config("rwkv6-3b"))
+                        .param_shapes())
+    dspec = ds.make_delta_spec(plan, SyncConfig(ratio=0.02, bucketed=True),
+                               workers=W)
+    assert dspec.nbytes == spec0
+    assert max(w.k for w in dspec.wires if w.kind == "sparse") == W * 20
+    assert 3 * spec0 * 4 < 3 * dspec.dense_nbytes
